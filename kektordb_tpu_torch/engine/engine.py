@@ -9,8 +9,8 @@ Not ported yet, and refused with NotImplementedError (ROADMAP.md, queue 1,
 item numbers in the messages): persistence (`data_dir`: AOF and
 checkpoints), sharded indexes (`shards > 1`), host-arena indexes
 (`kind="host"`), text and decay fusion (`text_query`, memory decay), and
-every option the index refuses (`serve_mode` other than "scan",
-`serve_proj_dim`). Without persistence nothing is journaled.
+every option the index refuses (`serve_proj_dim`). Without persistence
+nothing is journaled.
 """
 
 from __future__ import annotations
@@ -115,14 +115,13 @@ class Engine:
 
     def create_index(self, name: str, *, metric: str = dist.L2,
                      precision: str = dist.F32, m: int = 16,
+                     ef_construction: int = 200, ef_search: int = 100,
                      language: str = "english", kind: str = "hnsw",
                      seed: int = 42, shards: int = 0,
                      serve_mode: str = "auto",
                      serve_proj_dim: Optional[int] = None) -> None:
-        """VCREATE. Duplicate names are an error. Only kind "flat" and
-        kind "hnsw" with serve_mode="scan" are ported; the graph-build
-        parameters (ef_construction, ef_search) come with the graph build
-        (ROADMAP.md, queue 1, item 7)."""
+        """VCREATE. Duplicate names are an error. Kinds "hnsw" (serve_mode
+        "auto", "scan" or "beam") and "flat" are ported."""
         with self._lock:
             if name in self.indexes:
                 raise KeyError(f"index already exists: {name}")
@@ -140,7 +139,9 @@ class Engine:
                 raise NotImplementedError(
                     "shards > 1 (parallel/sharded) is not ported yet "
                     "(ROADMAP.md, queue 1, item 12)")
-            cfg = HNSWConfig(m=m, seed=seed, serve_mode=serve_mode,
+            cfg = HNSWConfig(m=m, ef_construction=ef_construction,
+                             ef_search=ef_search, seed=seed,
+                             serve_mode=serve_mode,
                              serve_proj_dim=serve_proj_dim or 0)
             if kind == "hnsw":
                 check_supported(cfg)
@@ -233,6 +234,18 @@ class Engine:
                                  [m for _, m in pairs])
         for e in ext_ids:
             self.events.emit(Event("vector.add", index, e))
+
+    def import_batch(self, index: str, ext_ids: Sequence[str],
+                     vectors: np.ndarray,
+                     metadatas: Optional[Sequence[Optional[dict]]] = None
+                     ) -> None:
+        """VImport: a fast graph build, then a full refine (no journal;
+        persistence is not ported)."""
+        h = self._handle(index)
+        self.add_batch(index, ext_ids, vectors, metadatas, fast=True)
+        with self._lock:
+            if hasattr(h.index, "turbo_refine"):
+                h.index.turbo_refine()
 
     def delete(self, index: str, ext_id: str) -> bool:
         """VDEL: soft delete + metadata and graph-node removal."""

@@ -1,15 +1,18 @@
-"""HNSW index, scan-serving half: the PyTorch port of
-kektordb_tpu/index/hnsw.py under `serve_mode="scan"`.
+"""HNSW index: the PyTorch port of kektordb_tpu/index/hnsw.py.
 
 The host side owns the string <-> row id maps, the level-sampling RNG (a
 numpy Generator, as in the reference, so both packages stamp the same
-levels), free lists and capacity tiers; the device side is a `GraphState`
-of tensors on `device`. Reads go through the fused scan (ops/scan.py).
+levels), free lists, capacity tiers, the unlinked backlog and the refine
+cursor; the device side is a `GraphState` of tensors on `device`, built
+and read by index/hnsw_kernels.py.
+
+serve_mode: "auto" (the default) links the graph on every insert and
+serves queries from the fused scan (ops/scan.py); "scan" never links;
+"beam" serves from the graph's beam search.
 
 Not ported yet, and refused with NotImplementedError rather than served
-some other way: the graph build and beam serving (`serve_mode` "auto" and
-"beam", `add_batch(link=True)`), the PCA-projected pass A
-(`serve_proj_dim`) and `compress_serving`.
+some other way: the PCA-projected pass A (`serve_proj_dim`),
+`compress_serving` and `optimize_layout` (ROADMAP.md, queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -28,25 +31,31 @@ from ..ops import scan as scanlib
 from . import hnsw_kernels as K
 from .base import IDMap
 
-GRAPH_TODO = ("the graph build and beam serving are not ported yet "
-              "(ROADMAP.md, queue 1, item 7)")
-
 
 @dataclass
 class HNSWConfig:
-    """The reference's parameters that the scan-serving index reads, with
-    the reference's names and defaults. `m` and `lmax` size the state's
-    graph tensors and `ml` the level sampling, so a state carries across;
-    the graph-build and beam fields (ef_construction, ef_search, refine_*,
-    expand, ...) come with the graph build (ROADMAP.md, queue 1, item 7)."""
+    """The reference's parameters that the port reads, with the
+    reference's names and defaults. `m` and `lmax` size the state's graph
+    tensors and `ml` the level sampling, so a state carries across."""
     m: int = 16
+    ef_construction: int = 200
+    ef_search: int = 100
     ml: float = 0.0                  # 0 -> 1/ln(m)
     seed: int = 42
-    chunk: int = 512
+    chunk: int = 512                 # graph build chunk
     flush_chunk: int = 64            # streaming insert micro-batch
     lmax: int = 8
+    refine_ef: int = 0               # 0 -> ef_construction
+    refine_batch: int = 512
+    intra_k: int = 16                # intra-chunk brute-force candidates
+    expand: int = 8                  # beam candidates expanded per step, build
+    serve_expand: int = 4            # the same for the serving beam
     vacuum_deleted_ratio: float = 0.10
-    serve_mode: str = "auto"         # only "scan" is ported
+    fast_ef: int = 40                # add_batch(fast=True) ef floor
+    serve_mode: str = "auto"         # "auto" | "scan" | "beam"
+    # serve_mode "auto": past this many staged-but-unlinked rows, add()
+    # links one chunk inline, so sustained writes keep the backlog bounded
+    max_unlinked: int = 32768
     scan_exact: bool = False         # exact pass-A precision forms
     scan_precision: str = "high"     # "fast": single bf16 pass, no re-rank
     int8_symmetric: bool = False     # int8 arenas: quantize the query too
@@ -56,12 +65,14 @@ class HNSWConfig:
         return self.ml if self.ml > 0 else 1.0 / math.log(max(self.m, 2))
 
 
+SERVE_MODES = ("auto", "scan", "beam")
+
+
 def check_supported(config: HNSWConfig) -> None:
     """Refuse the options whose code paths are not ported yet."""
-    if config.serve_mode != "scan":
-        raise NotImplementedError(
-            f"serve_mode={config.serve_mode!r}: {GRAPH_TODO}; "
-            "use serve_mode='scan'")
+    if config.serve_mode not in SERVE_MODES:
+        raise ValueError(f"serve_mode must be one of {SERVE_MODES}, "
+                         f"not {config.serve_mode!r}")
     if config.serve_proj_dim:
         raise NotImplementedError(
             "serve_proj_dim > 0 (PCA-projected pass A) is not ported yet "
@@ -127,9 +138,15 @@ class HNSWIndex:
         self._max_level = 0
         self._deleted_rows: set[int] = set()
         self._up_free: list[int] = []
-        # rows with ids allocated whose vectors are not staged yet
+        self._up_next = 0                # next never-used upper slot
+        self._refine_cursor = 0
+        self.needs_refine = False        # fast-built graph: beam ef boost
+        # two-stage insert: _pending rows have ids but their vectors are
+        # not staged yet; _unlinked rows are staged (scan-visible) but not
+        # graph-linked yet
         self._pending: list[tuple[int, np.ndarray]] = []
         self._pending_rows: set[int] = set()
+        self._unlinked: list[tuple[int, int]] = []   # (row, level)
 
     @classmethod
     def from_reference_state(cls, arrays: Mapping[str, np.ndarray],
@@ -143,10 +160,11 @@ class HNSWIndex:
         `arrays`: the reference's GraphState leaves by field name, as numpy
         (`jax.device_get(idx.state)._asdict()`). `ids`: its IDMap contents,
         {"row_to_ext": [...], "free": [...]}. `mirrors`: its host mirrors,
-        any of deleted_rows, max_level, up_free, abs_max (the
-        trained quantizer's), serve_quantized and rng_state
-        (`idx.rng.bit_generator.state`, so later adds sample the same
-        levels). The reference index must be settled
+        any of deleted_rows, max_level, up_free, up_next (the next unused
+        upper slot), unlinked (the (row, level) backlog), refine_cursor,
+        needs_refine, abs_max (the trained quantizer's), serve_quantized
+        and rng_state (`idx.rng.bit_generator.state`, so later adds sample
+        the same levels). The reference index must be settled
         (`settle_for_serving()`): pending rows live only in its host
         memory."""
         idx = cls(arrays["vectors"].shape[1], metric, precision, config,
@@ -163,8 +181,12 @@ class HNSWIndex:
         idx.ids.rebuild_mask()
         m = mirrors or {}
         idx._deleted_rows = {int(r) for r in m.get("deleted_rows", ())}
-        idx._max_level = int(m.get("max_level", 0))
+        idx._max_level = int(m.get("max_level", int(idx.state.max_level)))
         idx._up_free = [int(s) for s in m.get("up_free", ())]
+        idx._up_next = int(m.get("up_next", 0))
+        idx._unlinked = [(int(r), int(lv)) for r, lv in m.get("unlinked", ())]
+        idx._refine_cursor = int(m.get("refine_cursor", 0))
+        idx.needs_refine = bool(m.get("needs_refine", False))
         idx._serve_quantized = bool(m.get("serve_quantized", False))
         if m.get("abs_max") is not None:
             idx.quantizer = quant.QuantizerState(
@@ -208,11 +230,12 @@ class HNSWIndex:
                             quantized=self._quantized(),
                             quantizer=self.quantizer)
 
-    def _encode_query(self, queries: np.ndarray
+    def _encode_query(self, queries: np.ndarray, scan: bool = True
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Serving-side query encode. int8 arenas keep the query float
-        (ASYMMETRIC scoring) unless `int8_symmetric`."""
-        if self._quantized() and not self.config.int8_symmetric:
+        """Serving-side query encode. On the scan, int8 arenas keep the
+        query float (ASYMMETRIC scoring) unless `int8_symmetric`; the beam
+        encodes it like a stored row (symmetric)."""
+        if self._quantized() and scan and not self.config.int8_symmetric:
             v = torch.from_numpy(np.ascontiguousarray(queries)).to(
                 self.device)
             if self.metric == dist.COSINE:
@@ -252,9 +275,9 @@ class HNSWIndex:
     # -- write path ----------------------------------------------------------
 
     def add(self, ext_id: str, vector: np.ndarray) -> None:
-        """Streaming insert: the row is allocated now and its vector staged
-        at the next micro-batch boundary (search stages pending rows
-        first, so a search always sees it)."""
+        """Streaming insert: the row is allocated now, its vector staged at
+        the next micro-batch boundary (search stages pending rows first,
+        so a search always sees it) and its graph links made lazily."""
         if ext_id in self.ids:
             raise KeyError(f"id already present: {ext_id}")
         v = np.asarray(vector, np.float32).reshape(-1)
@@ -266,14 +289,20 @@ class HNSWIndex:
         self._pending_rows.add(row)
         if len(self._pending) >= self.config.flush_chunk:
             self._stage_pending()
+            if (self.config.serve_mode == "auto"
+                    and len(self._unlinked) > self.config.max_unlinked):
+                self.ensure_linked(limit=self.config.chunk)
 
     def add_batch(self, ext_ids: Sequence[str], vectors: np.ndarray,
                   fast: bool = False, link: Optional[bool] = None) -> None:
-        """Bulk insert, staged in chunks of max(chunk, 8192) rows. Only
-        `link=False` (the scan-only index) is ported; `fast` is a
-        graph-build hint."""
-        if link:
-            raise NotImplementedError(f"add_batch(link=True): {GRAPH_TODO}")
+        """Bulk insert. link=None follows serve_mode ("scan" never links).
+        link=False stages the rows in chunks of max(chunk, 8192), scan-only;
+        otherwise each chunk of `chunk` rows goes through the full graph
+        insert at ef_construction. fast=True floors ef at
+        max(fast_ef, 2 m) and sets needs_refine, so beam queries get an ef
+        boost until the graph is refined."""
+        if link is None:
+            link = self.config.serve_mode != "scan"
         vectors = np.asarray(vectors, np.float32)
         if vectors.shape != (len(ext_ids), self.dim):
             raise ValueError(
@@ -284,23 +313,34 @@ class HNSWIndex:
             if e in self.ids or e in seen:
                 raise KeyError(f"id already present: {e}")
             seen.add(e)
-        self._stage_pending()
-        self._grow_for(len(ext_ids))
-        C = max(self.config.chunk, 8192)
+        if not link:
+            self._stage_pending()
+            self._grow_for(len(ext_ids))
+            C = max(self.config.chunk, 8192)
+            for i in range(0, len(ext_ids), C):
+                block = ext_ids[i:i + C]
+                rows = np.fromiter((self.ids.alloc(e) for e in block),
+                                   np.int32, len(block))
+                self._stage_block(rows, vectors[i:i + C])
+            return
+        self.flush()
+        C = self.config.chunk
+        ef = max(self.config.fast_ef, 2 * self.config.m) if fast \
+            else self.config.ef_construction
         for i in range(0, len(ext_ids), C):
-            block = ext_ids[i:i + C]
-            rows = np.fromiter((self.ids.alloc(e) for e in block),
-                               np.int32, len(block))
-            self._stage_block(rows, vectors[i:i + C])
+            self._commit(ext_ids[i:i + C], vectors[i:i + C], ef)
+        if fast:
+            self.needs_refine = True
 
     def _stage_block(self, rows: np.ndarray, vectors: np.ndarray) -> None:
         """Encode + arena write + level stamp: the rows become
-        scan-visible."""
+        scan-visible and join the unlinked backlog (unless scan-only)."""
         levels = self._sample_levels(rows.size)
         enc, norms = self._encode(vectors)
         self.state = K.stage_vectors(
-            self.state, torch.from_numpy(rows).to(self.device), enc, norms,
-            torch.from_numpy(levels).to(self.device))
+            self.state, self._rows(rows), enc, norms, self._rows(levels))
+        if self.config.serve_mode != "scan":
+            self._unlinked.extend(zip(rows.tolist(), levels.tolist()))
 
     def _stage_pending(self) -> None:
         P = self.config.flush_chunk
@@ -311,24 +351,97 @@ class HNSWIndex:
             self._stage_block(rows, np.stack([v for _, v in take]))
             self._pending_rows.difference_update(rows.tolist())
 
+    def _rows(self, a: np.ndarray) -> torch.Tensor:
+        """Host int32 array -> int32 tensor on the device."""
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+            self.device)
+
+    def ensure_linked(self, limit: Optional[int] = None) -> None:
+        """Link the staged-but-unlinked backlog into the graph, a chunk at
+        a time; `limit` bounds the rows drained."""
+        self._stage_pending()
+        C = self.config.chunk
+        drained = 0
+        while self._unlinked and (limit is None or drained < limit):
+            take = self._unlinked[:C]
+            self._unlinked = self._unlinked[C:]
+            rows, lvls = np.array(take, np.int32).T
+            self.state = K.link_chunk(
+                self.state, self._rows(rows), self._rows(lvls),
+                metric=self.metric, ef=self.config.ef_construction,
+                m=self.config.m, intra_k=self.config.intra_k,
+                dual=bool(self._deleted_rows), expand=self.config.expand)
+            self._register_upper([(r, lv) for r, lv in take if lv >= 1])
+            drained += len(take)
+
+    def flush(self) -> None:
+        """Stage and link everything."""
+        self.ensure_linked()
+
+    def _commit(self, ext_ids: Sequence[str], vectors: np.ndarray,
+                ef: int) -> None:
+        """One chunk of rows through the full insert. The reference pads
+        a chunk with -1 rows to a static shape for its compiler; eager
+        torch needs no padding, and padding rows change no real row's
+        result."""
+        n = len(ext_ids)
+        self._grow_for(n)
+        rows = np.fromiter((self.ids.alloc(e) for e in ext_ids), np.int32, n)
+        levels = self._sample_levels(n)
+        enc, norms = self._encode(vectors)
+        self.state = K.insert_chunk(
+            self.state, self._rows(rows), enc, norms, self._rows(levels),
+            metric=self.metric, ef=ef, m=self.config.m,
+            intra_k=self.config.intra_k, dual=bool(self._deleted_rows),
+            expand=self.config.expand)
+        self._register_upper([(int(r), int(lv)) for r, lv in
+                              zip(rows, levels) if lv >= 1])
+
+    def _register_upper(self, ups: list[tuple[int, int]]) -> None:
+        """Insert (row, level >= 1) nodes into the upper exact-KNN
+        layers."""
+        if not ups:
+            return
+        unodes = np.array([r for r, _ in ups], np.int32)
+        uslots = np.array([self._alloc_up_slot() for _ in ups], np.int32)
+        self._max_level = max(self._max_level, max(lv for _, lv in ups))
+        self.state = K.update_upper(self.state, self._rows(unodes),
+                                    self._rows(uslots), metric=self.metric,
+                                    top_level=self._max_level)
+
+    def _alloc_up_slot(self) -> int:
+        if self._up_free:
+            return self._up_free.pop()
+        s = self._up_next
+        self._up_next += 1
+        if s >= self._ucap:
+            # an unlucky level draw overflowed the 2x headroom
+            self.state = K.grow_state(self.state, self._cap, self._ucap * 2)
+            self._ucap *= 2
+        return s
+
     # -- concurrent-serving protocol (engine read/write lock split) ----------
 
     def settle_for_serving(self, mode: Optional[str] = None) -> None:
         """Commit every pending write a search would otherwise perform, so
         that the search itself is pure (run under the engine's exclusive
-        lock)."""
+        lock): staging for the scan, staging and linking for the beam."""
         if (mode or self.config.serve_mode) == "beam":
-            raise NotImplementedError(f"mode='beam': {GRAPH_TODO}")
-        self._stage_pending()
+            self.flush()
+        else:
+            self._stage_pending()
 
-    def serving_dirty(self) -> bool:
-        """True if a search would mutate state (pending stage work)."""
+    def serving_dirty(self, mode: Optional[str] = None) -> bool:
+        """True if a search would mutate state (pending stage/link work)."""
+        if (mode or self.config.serve_mode) == "beam":
+            return bool(self._pending or self._unlinked)
         return bool(self._pending)
 
     # -- delete / maintenance -------------------------------------------------
 
     def delete(self, ext_id: str) -> bool:
-        """Soft delete: the row leaves every result; vacuum() reclaims it."""
+        """Soft delete: the row stays traversable but leaves every result;
+        vacuum() reclaims it."""
         if ext_id not in self.ids:
             return False
         row = self.ids.ext_to_row[ext_id]
@@ -346,23 +459,75 @@ class HNSWIndex:
         return True
 
     def run_maintenance_cycle(self) -> str:
-        """Stage pending rows, then vacuum when the deleted ratio crosses
-        the threshold. A scan index has no graph to refine."""
-        self._stage_pending()
+        """Link the backlog, then vacuum when the deleted ratio crosses
+        the threshold, otherwise refine a cursor batch. A scan index has
+        no graph: it stages and vacuums only."""
+        scan_only = self.config.serve_mode == "scan"
+        if scan_only:
+            self._stage_pending()
+        else:
+            self.ensure_linked()
         total = self.ids.capacity_used
         if total and len(self._deleted_rows) / total \
                 >= self.config.vacuum_deleted_ratio:
             self.vacuum()
             return "vacuum"
-        return "idle"
+        if scan_only:
+            return "idle"
+        self.refine_step()
+        return "refine"
+
+    def refine_step(self, rows: Optional[np.ndarray] = None) -> None:
+        """One refine batch: the given rows, or the next refine_batch live
+        rows from the cursor."""
+        ef = self.config.refine_ef or self.config.ef_construction
+        B = self.config.refine_batch
+        if rows is None:
+            live = self._live_rows()
+            if live.size == 0:
+                return
+            start = self._refine_cursor % live.size
+            rows = live[(start + np.arange(min(B, live.size))) % live.size]
+            self._refine_cursor = int((start + B) % max(live.size, 1))
+        self.state = K.refine_chunk(self.state, self._rows(rows[:B]),
+                                    metric=self.metric, ef=ef,
+                                    m_out=2 * self.config.m)
+
+    def turbo_refine(self, passes: int = 1) -> None:
+        """Refine every live row (after a bulk import) and clear the
+        needs_refine ef boost. A scan index only stages."""
+        if self.config.serve_mode == "scan":
+            self._stage_pending()
+            self.needs_refine = False
+            return
+        self.flush()
+        live = self._live_rows()
+        B = self.config.refine_batch
+        for _ in range(passes):
+            for i in range(0, live.size, B):
+                self.refine_step(live[i:i + B])
+        self.needs_refine = False
 
     def vacuum(self) -> int:
-        """Purge deleted rows and recycle their slots; returns how many. A
-        scan index has no graph to heal, so it purges directly (the entry
-        point is re-elected for states carried across with a graph)."""
-        self._stage_pending()
+        """Reconnect the live rows that point at deleted ones (refine),
+        re-elect the entry point if it was deleted, purge the deleted rows
+        and recycle their slots; returns how many were purged. A scan index
+        has no graph to heal and purges directly."""
+        if self.config.serve_mode == "scan":
+            self._stage_pending()
+            dead_set = self._deleted_rows
+            self._unlinked = [(r, lv) for r, lv in self._unlinked
+                              if r not in dead_set]
+        else:
+            self.flush()
         if not self._deleted_rows:
             return 0
+        if self.config.serve_mode != "scan":
+            affected = K.rows_referencing_deleted(self.state)
+            aff_rows = torch.nonzero(affected)[:, 0].int().cpu().numpy()
+            B = self.config.refine_batch
+            for i in range(0, aff_rows.size, B):
+                self.refine_step(aff_rows[i:i + B])
         dead = np.fromiter(self._deleted_rows, np.int32)
         dead_slots = self.state.up_of.cpu().numpy()[dead]
         dead_slots = dead_slots[dead_slots >= 0].astype(np.int32)
@@ -375,10 +540,8 @@ class HNSWIndex:
                 self._max_level = int(levels[entry])
             self.state.entry.fill_(entry)
             self.state.max_level.fill_(self._max_level)
-        self.state = K.purge_rows(self.state,
-                                  torch.from_numpy(dead).to(self.device),
-                                  torch.from_numpy(dead_slots).to(
-                                      self.device))
+        self.state = K.purge_rows(self.state, self._rows(dead),
+                                  self._rows(dead_slots))
         n = len(self._deleted_rows)
         for r in self._deleted_rows:
             self.ids.free.append(int(r))
@@ -395,7 +558,7 @@ class HNSWIndex:
                                                    np.int32))]
         return live
 
-    # -- query path ------------------------------------------------------------
+    # -- query path -----------------------------------------------------------
 
     def prepare_allow(self, mask: np.ndarray) -> torch.Tensor:
         """Host bool mask -> [cap] bool tensor on the device, which search()
@@ -425,9 +588,7 @@ class HNSWIndex:
         return allow
 
     def _queries(self, queries) -> np.ndarray:
-        """Stage pending rows (a search sees every add) and check the
-        query batch: [D] or [B, D] -> [B, D] float32."""
-        self._stage_pending()
+        """Check the query batch: [D] or [B, D] -> [B, D] float32."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         if queries.shape[-1] != self.dim:
             raise ValueError(
@@ -438,29 +599,57 @@ class HNSWIndex:
                ef: Optional[int] = None, allow_rows=None,
                mode: Optional[str] = None
                ) -> tuple[np.ndarray, np.ndarray]:
-        """Batched k-NN through the fused scan: [B, D] -> (dists [B, k],
-        rows [B, k]; -1 pads). `ef` is a beam parameter, unused here."""
-        if (mode or self.config.serve_mode) == "beam":
-            raise NotImplementedError(f"mode='beam': {GRAPH_TODO}")
+        """Batched k-NN: [B, D] -> (dists [B, k], rows [B, k]; -1 pads).
+        serve_mode "auto" / "scan": the fused scan; "beam" (or
+        mode="beam"): the graph's beam search at ef (default ef_search)."""
+        use_scan = (mode or self.config.serve_mode) != "beam"
+        if use_scan:
+            self._stage_pending()
+        else:
+            self.flush()
         queries = self._queries(queries)
         B = queries.shape[0]
-        if len(self.ids) == 0:
+        if len(self.ids) == 0 or (not use_scan and int(self.state.entry) < 0):
             return (np.full((B, k), np.inf, np.float32),
                     np.full((B, k), -1, np.int32))
-        q, qn = self._encode_query(queries)
-        d, rows = self._scan_search_device(q, qn, B, k,
-                                           self._allow_to_device(allow_rows))
+        q, qn = self._encode_query(queries, scan=use_scan)
+        allow = self._allow_to_device(allow_rows)
+        if use_scan:
+            d, rows = self._scan_search_device(q, qn, B, k, allow)
+        else:
+            d, rows = self._beam_search_device(q, qn, k, ef, allow)
         d_np, i_np = d.cpu().numpy(), rows.cpu().numpy()
-        if self._serve_quantized and self.metric == dist.L2 \
-                and self.config.int8_symmetric:
-            # symmetric int8 L2 scores in the quantized domain
+        if self._serve_quantized and self.metric == dist.L2 and (
+                not use_scan or self.config.int8_symmetric):
+            # the beam and symmetric int8 scan score L2 in the quantized
+            # domain
             quantum = float(self.quantizer.abs_max) / 127.0
             d_np = d_np * (quantum * quantum)
         return d_np, i_np
 
+    def _beam_search_device(self, q, qn, k: int, ef: Optional[int],
+                            allow):
+        """Beam serving: ef boost for a fast-built graph, and the dual pool
+        when a filter or a deletion makes rows ineligible. The batch runs
+        as it is: eager torch has no compiled program per batch size that
+        padding would let requests share."""
+        ef = ef or self.config.ef_search
+        if self.needs_refine:
+            ef = min(max(ef, 80), 200)
+        ef = max(ef, k)
+        d, rows = K.beam_search(
+            self.state, q, qn, metric=self.metric, ef=ef, allow=allow,
+            dual=allow is not None or bool(self._deleted_rows),
+            expand=self.config.serve_expand)
+        return d[:, :k], rows[:, :k]
+
     def search_device(self, queries: np.ndarray, k: int, *, allow_rows=None):
         """Scan serving with device-resident results: (d [B, k] f32,
-        rows [B, k] int32, l2_rescale float), or None for an empty index."""
+        rows [B, k] int32, l2_rescale float), or None where this index
+        does not serve from the scan (serve_mode "beam", or empty)."""
+        if self.config.serve_mode == "beam":
+            return None
+        self._stage_pending()
         queries = self._queries(queries)
         if len(self.ids) == 0:
             return None
@@ -506,6 +695,16 @@ class HNSWIndex:
             fast=self.config.scan_precision == "fast",
             quantum=self._quantum())
         return d[:B, :k], rows[:B, :k].int()
+
+    def compress_serving(self, dtype: str = "bfloat16") -> None:
+        raise NotImplementedError(
+            "compress_serving is not ported yet (ROADMAP.md, queue 1, "
+            "item 7)")
+
+    def optimize_layout(self) -> None:
+        raise NotImplementedError(
+            "optimize_layout is not ported yet (ROADMAP.md, queue 1, "
+            "item 7)")
 
     def get_vector(self, ext_id: str) -> Optional[np.ndarray]:
         """The stored vector (normalized for cosine, dequantized for

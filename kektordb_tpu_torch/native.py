@@ -82,5 +82,10 @@ def load() -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            fn = lib.kektor_gather_dist
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_long] + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from .. import device as _device  # noqa: F401  (TF32 off)
+from .. import native
 
 # Metrics and precisions: the same names as the reference
 L2 = "euclidean"
@@ -100,13 +101,22 @@ def gathered(
     query_norms: Optional[torch.Tensor] = None,
     quantum: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Distances from each query to its own gathered candidate rows; +inf
-    for invalid ids. int8 corpora score SYMMETRICALLY (int8 query, integer
-    domain) or ASYMMETRICALLY (float query x codes in float32; `quantum`
-    maps L2 back to the real domain)."""
+    """Distances from each query to its own gathered candidate rows: [B, C]
+    f32, +inf for invalid ids. int8 corpora score SYMMETRICALLY (int8
+    query, integer domain) or ASYMMETRICALLY (float query x codes in
+    float32; `quantum` maps L2 back to the real domain), as torch ops.
+
+    The float branch (f32 and bf16 arenas) is the graph's hot step. On a
+    CUDA tensor it launches the kernel csrc/gather_dist.cu and counts the
+    launch in `gathered.launches`; on a CPU tensor it runs
+    `gathered_plain`."""
+    if vectors.dtype != torch.int8:
+        if not vectors.is_cuda:
+            return gathered_plain(vectors, ids, queries, metric)
+        return _gather_dist(vectors, ids, queries, metric)
     safe = torch.clamp_min(ids, 0).long()
     vecs = vectors[safe]                                   # [B, C, D]
-    if vectors.dtype == torch.int8 and queries.dtype == torch.int8:
+    if queries.dtype == torch.int8:
         dots = (vecs.int() * queries.int()[:, None, :]).sum(-1).float()
         if metric == COSINE:
             cn = torch.clamp_min(corpus_norms[safe], 1e-9)
@@ -116,7 +126,7 @@ def gathered(
             q2 = (query_norms ** 2)[:, None]
             c2 = corpus_norms[safe] ** 2
             d = q2 - 2.0 * dots + c2
-    elif vectors.dtype == torch.int8:
+    else:
         dots = torch.bmm(vecs.float(), queries.float()[:, :, None])[..., 0]
         cn = torch.clamp_min(corpus_norms[safe], 1e-9)     # |x_int|
         if metric == COSINE:
@@ -126,17 +136,68 @@ def gathered(
                 else torch.tensor(1.0, device=vectors.device)
             q2 = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
             d = q2 - 2.0 * qm * dots + (qm * cn) ** 2
-    else:
-        q = queries.to(torch.bfloat16) if vectors.dtype == torch.bfloat16 \
-            else queries
-        dots = torch.bmm(vecs.float(), q.float()[:, :, None])[..., 0]
-        if metric == COSINE:
-            d = 1.0 - dots
-        else:
-            q2 = torch.sum(queries.float() ** 2, dim=-1)[:, None]
-            c2 = torch.sum(vecs.float() ** 2, dim=-1)
-            d = q2 - 2.0 * dots + c2
     return torch.where(ids < 0, INF, d)
+
+
+def gathered_plain(vectors: torch.Tensor, ids: torch.Tensor,
+                   queries: torch.Tensor, metric: str) -> torch.Tensor:
+    """Plain PyTorch version of the gather-distance kernel (the float
+    branch of `gathered`): L2 = |q|^2 - 2 q.v + |v|^2 with |q|^2 of the
+    unrounded query, cosine = 1 - q.v; a bf16 arena's dot takes the query
+    rounded to bf16. +inf for ids < 0."""
+    safe = torch.clamp_min(ids, 0).long()
+    vecs = vectors[safe]                                   # [B, C, D]
+    q = queries.to(torch.bfloat16) if vectors.dtype == torch.bfloat16 \
+        else queries
+    dots = torch.bmm(vecs.float(), q.float()[:, :, None])[..., 0]
+    if metric == COSINE:
+        d = 1.0 - dots
+    else:
+        q2 = torch.sum(queries.float() ** 2, dim=-1)[:, None]
+        c2 = torch.sum(vecs.float() ** 2, dim=-1)
+        d = q2 - 2.0 * dots + c2
+    return torch.where(ids < 0, INF, d)
+
+
+_VDTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_METRIC = {L2: 0, COSINE: 1}
+
+
+def _gather_dist(vectors: torch.Tensor, ids: torch.Tensor,
+                 queries: torch.Tensor, metric: str) -> torch.Tensor:
+    """Launch csrc/gather_dist.cu: [B, C] f32 distances; raises on what the
+    kernel does not take. Ids at or past the arena's last row score +inf
+    (the plain version would raise on them)."""
+    if vectors.dtype not in _VDTYPE or vectors.ndim != 2:
+        raise TypeError(f"gather_dist takes an f32 or bf16 [N, D] arena, "
+                        f"not {vectors.dtype} {tuple(vectors.shape)}")
+    if metric not in _METRIC:
+        raise ValueError(f"unknown metric {metric!r}")
+    B, C = ids.shape
+    D = vectors.shape[1]
+    if queries.shape != (B, D):
+        raise ValueError(f"queries {tuple(queries.shape)} do not match ids "
+                         f"{tuple(ids.shape)} and arena width {D}")
+    if ids.device != vectors.device or queries.device != vectors.device:
+        raise ValueError("gather_dist operands must lie on one device")
+    if not vectors.is_contiguous():
+        raise ValueError("the arena must be contiguous")
+    if B * C == 0:
+        return torch.empty((B, C), dtype=torch.float32, device=ids.device)
+    ids32 = ids.to(torch.int32).contiguous()
+    q32 = queries.float().contiguous()
+    out = torch.empty((B, C), dtype=torch.float32, device=ids.device)
+    err = native.load().kektor_gather_dist(
+        ids32.data_ptr(), q32.data_ptr(), vectors.data_ptr(), out.data_ptr(),
+        B, C, D, vectors.shape[0], _VDTYPE[vectors.dtype], _METRIC[metric],
+        torch.cuda.current_stream(vectors.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gather_dist launch failed: CUDA error {err}")
+    gathered.launches += 1
+    return out
+
+
+gathered.launches = 0
 
 
 def merge_topk(d: torch.Tensor, i: torch.Tensor, k: int

@@ -157,17 +157,35 @@ def test_grow_keeps_rows_searchable():
     assert rows[:, 0].tolist() == [0, 4999]
 
 
-@pytest.mark.parametrize("call", [
-    lambda: HNSWIndex(4, device="cpu"),                       # "auto"
-    lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="beam"), device="cpu"),
-    lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan",
-                                           serve_proj_dim=2), device="cpu"),
-    lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan"),
-                      device="cpu").add_batch(["a"], np.ones((1, 4)),
-                                              link=True),
-    lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan"),
-                      device="cpu").search(np.ones((1, 4)), 1, mode="beam"),
-])
-def test_deferred_options_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+def _linked_scan_index():
+    idx = HNSWIndex(4, config=HNSWConfig(serve_mode="scan"), device="cpu")
+    idx.add_batch(["a"], np.ones((1, 4)), link=True)
+    return idx
+
+
+# (call, ported): the options the graph slice ported now run; the rest
+# still raise, naming their ROADMAP item
+@pytest.mark.parametrize("call,ported", [
+    (lambda: HNSWIndex(4, device="cpu"), True),                # "auto"
+    (lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="beam"),
+                       device="cpu"), True),
+    (lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan",
+                                            serve_proj_dim=2),
+                       device="cpu"), False),
+    (_linked_scan_index, True),
+    (lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan"),
+                       device="cpu").search(np.ones((1, 4)), 1,
+                                            mode="beam"), True),
+], ids=[f"call{i}" for i in range(5)])
+def test_deferred_options_raise(call, ported):
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+        return
+    out = call()
+    if isinstance(out, HNSWIndex):
+        assert out.config.serve_mode in ("auto", "beam", "scan")
+        if len(out):      # add_batch(link=True): the row is linked
+            assert int(out.state.entry) == 0
+    else:                 # beam search of an empty index: -1 / +inf
+        assert out[1].tolist() == [[-1]] and np.isinf(out[0]).all()
