@@ -2,16 +2,20 @@
 H100 (sm_90a).
 
   ops/      distances, the int8 quantizer, the fused scan (pass A is the
-            CUDA kernel csrc/scan_pass_a.cu, pass B a torch top-k)
-  index/    the index state as tensors; the scan-serving HNSW index and
-            the brute-force oracle
-  engine/   the in-memory Engine: indexes, metadata filters, knowledge
-            graph, KV
+            CUDA kernel csrc/scan_pass_a.cu, pass B a torch top-k), the
+            hybrid text + decay epilogue (fuse.py), and the scan probes'
+            kernels (scan_probe.py)
+  index/    the index state as tensors; the HNSW index (graph build, scan
+            and beam serving) and the brute-force oracle
+  engine/   the in-memory Engine: indexes, metadata filters, hybrid and
+            decayed search, knowledge graph, belief states, KV
+  text/     BM25 and the English / Italian analyzers (a copy of the JAX
+            package's JAX-free text modules)
+  probes/   the product-ceiling and scan-prototype probes, run on the card
   device.py device selection and float32 precision (TF32 off)
   native.py builds csrc/ with nvcc at first use and loads it with ctypes
 
-The package imports torch and never jax. From the JAX package it uses only
-the JAX-free text analysis (`kektordb_tpu.text`).
+The package imports torch and never jax, and nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

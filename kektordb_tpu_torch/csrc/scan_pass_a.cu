@@ -30,6 +30,23 @@
 // scores into a running min held in registers. So the group reduction
 // costs no memory traffic at all. It does not use the tensor cores
 // (wgmma), TMA or a per-tile top-k: those are later work.
+//
+// The same kernel serves the two scan probes of scripts/:
+//   * `scan_reduce` (scripts/scan_pallas_proto.py, `make_kernel`) is pass A
+//     in the bf16 form with biasB = 2: it goes through kektor_scan_pass_a
+//     with W = ST / G of 128, 256 or 512, so one tile spans several blocks
+//     along W (jblocks > 1).
+//   * `scan_vT` (scripts/matmul_ceiling.py) reads a TRANSPOSED bf16 arena
+//     vT [D, N] and computes bias - 2 * dots: the VT instantiation,
+//     entered by kektor_scan_vt. There, for member m of a tile, the
+//     block's 64 groups are the 64 contiguous rows t*ST + m*W + j0 ... +63,
+//     so at each depth k the block reads vT[k, row0 .. row0 + 63] as one
+//     coalesced 128-byte run (neighbouring threads take neighbouring rows);
+//     the row-major arena instead gives each thread a run along D. biasB
+//     is the constant 2 and is not read. At the probes' shape (B = 4096,
+//     N = 2^20, D = 128, G = 8) the [B, N/G] f32 + int32 output is 4.3 GB
+//     against 1.1 TFLOP, so the bound there is the output's bytes; this
+//     version, on the CUDA cores, is far from it either way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,7 +96,8 @@ __device__ __forceinline__ int load_word(const int8_t* row, int k, int D) {
   return static_cast<int>(w);
 }
 
-template <typename TQ, typename TV, bool RQ, bool RV, bool INT>
+// VT: v is the transposed arena [D, N] (bf16 only) and biasB is 2.
+template <typename TQ, typename TV, bool RQ, bool RV, bool INT, bool VT>
 __global__ void __launch_bounds__(THREADS)
 pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
               const float* __restrict__ biasA,
@@ -135,7 +153,9 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
         }
       }
       for (int e = threadIdx.x; e < BJ * BK; e += THREADS) {
-        const int r = e / BK, c = e % BK;
+        // neighbouring threads: along D in a row-major arena, along the
+        // rows in a transposed one (both coalesced)
+        const int r = VT ? e % BJ : e / BK, c = VT ? e / BJ : e % BK;
         const long row = row0 + r;
         const bool in = j0 + r < W && row < N;
         if constexpr (INT) {
@@ -145,7 +165,9 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
                         : 0;
         } else {
           const int k = k0 + c;
-          vs[c][r] = load_float<TV, RV>(v, row * D + k, in && k < D);
+          vs[c][r] = load_float<TV, RV>(
+              v, VT ? static_cast<long>(k) * N + row : row * D + k,
+              in && k < D);
         }
       }
       __syncthreads();
@@ -177,7 +199,7 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
       const long row = tile * ST + static_cast<long>(m) * W + jj;
       const bool in = jj < W && row < N;
       const float A = in ? biasA[row] : INFINITY;
-      const float Bm = in ? biasB[row] : 0.f;
+      const float Bm = !in ? 0.f : VT ? 2.f : biasB[row];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         // separate multiply and subtract (no FMA contraction), as the
@@ -210,7 +232,8 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
   }
 }
 
-template <typename TQ, typename TV, bool RQ, bool RV, bool INT>
+template <typename TQ, typename TV, bool RQ, bool RV, bool INT,
+          bool VT = false>
 int launch(const void* q, const void* v, const void* biasA,
            const void* biasB, void* gmin, void* garg, int B, int N, int D,
            int ST, int G, cudaStream_t stream) {
@@ -221,7 +244,7 @@ int launch(const void* q, const void* v, const void* biasA,
   const long gy = (static_cast<long>(B) + BQ - 1) / BQ;
   if (gx > 0x7fffffffL || gy > 65535) return cudaErrorInvalidConfiguration;
   dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  pass_a_kernel<TQ, TV, RQ, RV, INT><<<grid, THREADS, 0, stream>>>(
+  pass_a_kernel<TQ, TV, RQ, RV, INT, VT><<<grid, THREADS, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TV*>(v),
       static_cast<const float*>(biasA), static_cast<const float*>(biasB),
       static_cast<float*>(gmin), static_cast<int32_t*>(garg), B, N, D, ST,
@@ -265,4 +288,19 @@ extern "C" int kektor_scan_pass_a(const void* q, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// C entry point of the transposed-arena probe (`scan_vT`), bound with
+// ctypes by kektordb_tpu_torch/ops/scan_probe.py. q [B, D] bf16, vT [D, N]
+// bf16, bias [N] f32, contiguous on one card; gmin / garg as above, with
+// score = bias - 2 * dot. Returns 0 or the CUDA error of the launch.
+extern "C" int kektor_scan_vt(const void* q, const void* vT,
+                              const void* bias, void* gmin, void* garg,
+                              int B, int N, int D, int ST, int G,
+                              void* stream) {
+  if (B <= 0 || N <= 0 || D <= 0 || G <= 0 || ST <= 0 || ST % G)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<__nv_bfloat16, __nv_bfloat16, false, false, false, true>(
+      q, vT, bias, nullptr, gmin, garg, B, N, D, ST, G,
+      static_cast<cudaStream_t>(stream));
 }

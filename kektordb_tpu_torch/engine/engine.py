@@ -5,12 +5,16 @@ readers-writer lock. A search settles pending writes under the exclusive
 side, then runs the device search under the shared side, so concurrent
 readers do not serialize.
 
+Hybrid search (vector + BM25, `text_query` / `alpha`) and the
+agent-memory time decay run through the device epilogue of ops/fuse.py
+where the index serves from the scan (`search_device`), else through the
+host path `_assemble_fused`, the same math in float64.
+
 Not ported yet, and refused with NotImplementedError (ROADMAP.md, queue 1,
 item numbers in the messages): persistence (`data_dir`: AOF and
 checkpoints), sharded indexes (`shards > 1`), host-arena indexes
-(`kind="host"`), text and decay fusion (`text_query`, memory decay), and
-every option the index refuses (`serve_proj_dim`). Without persistence
-nothing is journaled.
+(`kind="host"`), and every option the index refuses (`serve_proj_dim`,
+`serve_proj_rerank`). Without persistence nothing is journaled.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..index.base import IDMap
 from ..index.bruteforce import BruteForceIndex
 from ..index.hnsw import HNSWConfig, HNSWIndex, check_supported
 from ..ops import distance as dist
+from ..ops import fuse as fuselib
 from . import filters as filtlib
 from . import fusion
 from .events import Event, EventBus
@@ -40,6 +45,16 @@ from .metadata import MetadataStore
 log = logging.getLogger("kektordb")
 
 GRAPH_DEPTH_CLAMP = 5  # resolveGraphFilter depth clamp (engine/graph.go:173)
+
+
+@dataclass
+class AutoLinkRule:
+    """Auto-link on shared metadata value (hnsw/config.go:134,
+    processAutoLinks ops.go:1699)."""
+    field: str
+    relation: str
+    bidirectional: bool = False
+    max_links: int = 32
 
 
 @dataclass
@@ -59,6 +74,7 @@ class IndexHandle:
         self.index = index
         self.meta = MetadataStore(language)
         self.memory = fusion.MemoryConfig()
+        self.auto_links: list[AutoLinkRule] = []
         self.language = language
         # allow-mask cache: (predicate/graph key + store versions) ->
         # (host mask, device mask). A cached device mask also skips the
@@ -66,6 +82,15 @@ class IndexHandle:
         self.mask_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.mask_hits = 0
         self.mask_misses = 0
+        # device decay mirror: (key, MemoryConfig identity, DecayDevice).
+        # Rebuilt when the decay columns mutate (DecayColumns.version) past
+        # a few dirty rows, the memory config is replaced, cap grows, or
+        # the f32 epoch ages out; otherwise refreshed in place from
+        # DecayColumns.dirty. decay_lock serializes the refresh: searches
+        # run under the SHARED side of the engine lock, and two refreshes
+        # consuming one dirty set could lose each other's rows.
+        self.decay_dev: Optional[tuple] = None
+        self.decay_lock = threading.Lock()
 
 
 class Engine:
@@ -184,6 +209,52 @@ class Engine:
                                "misses": h.mask_misses},
             }
 
+    def configure_index(self, name: str, config: dict[str, Any]) -> None:
+        """VCONFIG: runtime settings of an index: memory / decay, auto-link
+        rules, and the index knobs ef_search, scan_exact, scan_precision,
+        int8_symmetric, serve_mode and max_unlinked. Not journaled
+        (persistence is not ported)."""
+        h = self._handle(name)
+        if config.get("serve_proj_dim") or "serve_proj_rerank" in config:
+            raise NotImplementedError(
+                "serve_proj_dim > 0 / serve_proj_rerank (PCA-projected "
+                "pass A) is not ported yet (ROADMAP.md, queue 1, item 7)")
+        with self._lock:
+            mem = config.get("memory")
+            if mem:
+                layers = {k: fusion.LayerConfig(**v)
+                          for k, v in (mem.get("layers") or {}).items()}
+                h.memory = fusion.MemoryConfig(
+                    enabled=bool(mem.get("enabled", True)),
+                    decay_half_life=float(
+                        mem.get("decay_half_life",
+                                h.memory.decay_half_life)),
+                    decay_model=mem.get("decay_model", h.memory.decay_model),
+                    layers=layers)
+            if "auto_links" in config:
+                h.auto_links = [AutoLinkRule(**r)
+                                for r in config["auto_links"]]
+            if hasattr(h.index, "config"):
+                icfg = h.index.config
+                if "ef_search" in config:
+                    icfg.ef_search = int(config["ef_search"])
+                if "scan_exact" in config:
+                    icfg.scan_exact = bool(config["scan_exact"])
+                if "scan_precision" in config:
+                    if config["scan_precision"] not in ("high", "fast"):
+                        raise ValueError("scan_precision must be high|fast")
+                    icfg.scan_precision = config["scan_precision"]
+                if "int8_symmetric" in config:
+                    icfg.int8_symmetric = bool(config["int8_symmetric"])
+                if "serve_mode" in config:
+                    if config["serve_mode"] not in ("auto", "scan", "beam"):
+                        raise ValueError(
+                            "serve_mode must be auto|scan|beam")
+                    icfg.serve_mode = config["serve_mode"]
+                if "max_unlinked" in config:
+                    icfg.max_unlinked = max(0, int(config["max_unlinked"]))
+            self._dirty += 1
+
     def _handle(self, name: str) -> IndexHandle:
         h = self.indexes.get(name)
         if h is None:
@@ -208,6 +279,7 @@ class Engine:
                 row = self._row_of(h, ext_id)
                 if row is not None:
                     h.meta.set(row, meta)
+            self._process_auto_links(h, ext_id, meta)
         self.events.emit(Event("vector.add", index, ext_id))
 
     def add_batch(self, index: str, ext_ids: Sequence[str],
@@ -280,6 +352,24 @@ class Engine:
             raise KeyError(f"no such id: {ext_id}")
         return {"id": ext_id, "metadata": h.meta.get(row) or {}}
 
+    def reinforce(self, index: str, ext_id: str) -> None:
+        """VReinforce (ops.go:697): bump _last_accessed / _access_count.
+        The decay columns mark the row dirty, so the next decayed search
+        refreshes the device mirror in place."""
+        h = self._handle(index)
+        with self._lock:
+            row = self._row_of(h, ext_id)
+            if row is None:
+                raise KeyError(f"no such id: {ext_id}")
+            meta = h.meta.get(row) or {}
+            h.meta.update(row, {
+                fusion.ACCESSED_KEY: time.time(),
+                fusion.ACCESS_COUNT_KEY:
+                    int(meta.get(fusion.ACCESS_COUNT_KEY) or 0) + 1,
+            })
+            self._dirty += 1
+        self.events.emit(Event("vector.access", index, ext_id))
+
     def _validate_add(self, h: IndexHandle, ext_ids: Sequence[str],
                       vectors: np.ndarray) -> None:
         """Duplicate-id and dimension checks before any write."""
@@ -318,6 +408,29 @@ class Engine:
     def _row_of(self, h: IndexHandle, ext_id: str) -> Optional[int]:
         return h.index.ids.get(ext_id)
 
+    def _process_auto_links(self, h: IndexHandle, ext_id: str,
+                            meta: dict[str, Any]) -> None:
+        """processAutoLinks (ops.go:1699): link nodes sharing a field
+        value. Runs on `add`, as in the reference (not on `add_batch`)."""
+        for rule in h.auto_links:
+            val = meta.get(rule.field)
+            if val is None:
+                continue
+            sval = val if isinstance(val, str) else str(val)
+            rows = h.meta.inverted.get(rule.field, {}).get(sval, set())
+            linked = 0
+            for row in rows:
+                other = h.index.ids.row_to_ext[row] \
+                    if row < len(h.index.ids.row_to_ext) else None
+                if other is None or other == ext_id:
+                    continue
+                self.link(h.name, ext_id, rule.relation, other)
+                if rule.bidirectional:
+                    self.link(h.name, other, rule.relation, ext_id)
+                linked += 1
+                if linked >= rule.max_links:
+                    break
+
     # ----------------------------------------------------------- query path
 
     def search(self, index: str, query: Sequence[float] | np.ndarray,
@@ -333,31 +446,26 @@ class Engine:
                include_metadata: bool = False,
                decay: bool = True,
                columnar: bool = False):
-        """Filter -> allow rows; graph BFS -> intersect; vector search;
-        min-max normalized scores; top-k. Accepts [D] or [B, D]; returns a
-        list of per-query hit lists, or with columnar=True
-        {"ids", "scores", "distances"[, "metadata"]} ([B][<=k] lists;
-        columnar="np" keeps scores and distances as [B, k] float32 arrays
-        when every hit resolves)."""
-        if text_query:
-            raise NotImplementedError(
-                "text_query: hybrid text fusion (ops/fuse.py) is not "
-                "ported yet (ROADMAP.md, queue 1, item 8)")
+        """searchWithFusion (ops.go:896-1208): filter -> allow rows; graph
+        BFS -> intersect; vector + BM25 (`text_query`, weight `alpha` on
+        the vector side); min-max normalized scores; time decay on a
+        memory-enabled index (unless decay=False); top-k. Accepts [D] or
+        [B, D]; returns a list of per-query hit lists, or with
+        columnar=True {"ids", "scores", "distances"[, "metadata"]} ([B][<=k]
+        lists; columnar="np" keeps scores and distances as [B, k] float32
+        arrays when every hit resolves)."""
         h = self._handle(index)
-        if decay and h.memory.enabled:
-            raise NotImplementedError(
-                "memory decay (ops/fuse.py) is not ported yet "
-                "(ROADMAP.md, queue 1, item 8)")
         q = np.atleast_2d(np.asarray(query, np.float32))
         B = q.shape[0]
         idx = h.index
         if idx.dim and q.shape[-1] != idx.dim:
             raise ValueError(
                 f"query dim {q.shape[-1]} != index dim {idx.dim}")
-        kwargs = dict(ef=ef, filter=filter, graph_root=graph_root,
+        kwargs = dict(ef=ef, filter=filter, text_query=text_query,
+                      alpha=alpha, graph_root=graph_root,
                       graph_depth=graph_depth, graph_relation=graph_relation,
                       at_time=at_time, include_metadata=include_metadata,
-                      index=index, columnar=columnar)
+                      decay=decay, index=index, columnar=columnar)
         # settle pending writes under the EXCLUSIVE side, then search
         # under the SHARED side; a writer slipping in between forces a
         # retry
@@ -377,9 +485,10 @@ class Engine:
         with self._lock:          # pathological write pressure: go exclusive
             return self._search_locked(h, h.index, q, B, k, **kwargs)
 
-    def _search_locked(self, h, idx, q, B, k, *, ef, filter, graph_root,
-                       graph_depth, graph_relation, at_time,
-                       include_metadata, index, columnar=False):
+    def _search_locked(self, h, idx, q, B, k, *, ef, filter, text_query,
+                       alpha, graph_root, graph_depth, graph_relation,
+                       at_time, include_metadata, decay, index,
+                       columnar=False):
         cap = _cap_of(idx)
         live = idx.ids.live_mask(cap)
         allow: Optional[np.ndarray] = None
@@ -421,14 +530,262 @@ class Engine:
                 except KeyError:     # raced with an eviction: harmless
                     pass
             allow, allow_dev = ent
-        if len(idx) == 0:
+
+        text_rows = np.empty(0, np.int64)
+        text_vals = np.empty(0, np.float64)
+        if text_query:
+            text_rows, text_vals = h.meta.text.search_arrays(text_query)
+            if text_rows.size:
+                m = text_rows < cap
+                if allow is not None:
+                    m[m] = allow[text_rows[m]]
+                if not m.all():
+                    text_rows, text_vals = text_rows[m], text_vals[m]
+
+        text_only = text_query and _is_zero(q)
+        decay_on = decay and h.memory.enabled
+        if not text_only and len(idx) > 0:
+            fetch = max(k, (ef or 0))
+            if text_query or decay_on:
+                fetch = max(fetch, 2 * k)  # headroom for re-ranking
+            allow_arg = allow_dev if allow_dev is not None else allow
+            if text_rows.size or decay_on:
+                # device epilogue: fusion + decay + top-k chained onto the
+                # scan's device tensors, one copy back (ops/fuse.py); the
+                # host path below is the same math
+                sd = getattr(idx, "search_device", None)
+                res = sd(q, fetch, allow_rows=allow_arg) \
+                    if sd is not None else None
+                if res is not None:
+                    d_dev, rows_dev, scale = res
+                    sc, rw, dd = fuselib.fused_topk(
+                        d_dev, rows_dev, text_rows, text_vals,
+                        alpha if text_rows.size else 1.0, k,
+                        scale, cap_t=max(self.TEXT_CAND_CAP, 4 * k),
+                        decay_dev=self._decay_device(h, cap)
+                        if decay_on else None)
+                    return self._emit_topk(h, idx, sc, rw, dd, B, k,
+                                           include_metadata, columnar)
+            d, rows_out = idx.search(q, fetch, ef=ef, allow_rows=allow_arg)
+            d = np.asarray(d, np.float32)
+            rows_out = np.asarray(rows_out, np.int64)
+            if text_rows.size == 0 and not decay_on:
+                return self._assemble_fast(h, idx, d, rows_out, B, k,
+                                           include_metadata,
+                                           columnar=columnar)
+        else:
+            d = np.zeros((B, 0), np.float32)
+            rows_out = np.zeros((B, 0), np.int64)
+        return self._assemble_fused(
+            h, idx, d, rows_out, B, k, text_rows=text_rows,
+            text_vals=text_vals, alpha=alpha, decay=decay,
+            include_metadata=include_metadata, columnar=columnar)
+
+    # cap on text-branch candidates folded into the fusion (BM25 can match
+    # thousands of rows; beyond the top few hundred they cannot reach the
+    # fused top-k at any alpha)
+    TEXT_CAND_CAP = 512
+
+    # refresh the decay mirror's f32 epoch after this many seconds: at a
+    # 12h offset f32 still resolves ~5 ms, far below any decay half-life
+    DECAY_EPOCH_MAX_AGE = 12 * 3600.0
+
+    def _decay_device(self, h, cap: int):
+        """Version-keyed device mirror of the per-row decay spec
+        (ops/fuse.py build_decay_device); None only for cap = 0."""
+        if cap <= 0:
+            return None
+        cols = h.meta.decay
+        key = (cols.version, cap)
+
+        def fresh(ent, same_key=True):
+            return ent is not None and ent[1] is h.memory \
+                and (ent[0] == key if same_key else ent[0][1] == cap) \
+                and time.time() - ent[2].epoch < self.DECAY_EPOCH_MAX_AGE
+        ent = h.decay_dev
+        if fresh(ent):
+            return ent[2]
+        with h.decay_lock:
+            ent = h.decay_dev            # may have refreshed while waiting
+            if fresh(ent):
+                return ent[2]
+            # reinforce-on-read (the mcp_memory pattern) bumps the version
+            # per hit: when the stale mirror differs in a few dirty rows,
+            # refresh those in place instead of rebuilding O(cap)
+            if fresh(ent, same_key=False) \
+                    and 0 < len(cols.dirty) <= max(256, cap // 64):
+                dd = fuselib.update_decay_device(ent[2], cols, h.memory,
+                                                 cols.dirty)
+            else:
+                dd = fuselib.build_decay_device(cols, h.memory, cap,
+                                                self.device)
+            cols.dirty.clear()
+            h.decay_dev = (key, h.memory, dd)
+        return dd
+
+    def _assemble_fused(self, h, idx, d: np.ndarray, rows_out: np.ndarray,
+                        B: int, k: int, *, text_rows: np.ndarray,
+                        text_vals: np.ndarray,
+                        alpha: float, decay: bool, include_metadata: bool,
+                        columnar: bool = False, now: Optional[float] = None):
+        """Host fusion + decay assembly in float64 (ops.go:1071-1186
+        semantics: min-max normalize both branches, alpha-fuse over the
+        union, decay at `now` (default the clock), top-k): arrays end to
+        end, per-hit dicts only for the final k."""
+        F = rows_out.shape[1]
+        valid = rows_out >= 0
+        if F == 0:
+            vec_sim = np.zeros((B, 0), np.float64)
+        else:
+            dm = np.where(valid, d, np.nan)
+            all_nan = ~valid.any(axis=1, keepdims=True)
+            with np.errstate(invalid="ignore"):
+                lo = np.nanmin(np.where(all_nan, 0.0, dm), axis=1,
+                               keepdims=True)
+                hi = np.nanmax(np.where(all_nan, 0.0, dm), axis=1,
+                               keepdims=True)
+            span = hi - lo
+            ok_span = span > 0
+            vec_sim = np.where(ok_span,
+                               (hi - d) / np.where(ok_span, span, 1.0),
+                               1.0).astype(np.float64)
+            vec_sim = np.where(valid, vec_sim, -np.inf)
+
+        if text_rows.size:
+            cap_t = max(self.TEXT_CAND_CAP, 4 * k)
+            if text_rows.size > cap_t:
+                sel = np.argpartition(text_vals, text_vals.size - cap_t
+                                      )[-cap_t:]
+                tr, ts = text_rows[sel], text_vals[sel]
+            else:
+                tr, ts = text_rows, text_vals
+            t_lo, t_hi = ts.min(), ts.max()
+            tsn = np.ones_like(ts) if t_hi <= t_lo \
+                else (ts - t_lo) / (t_hi - t_lo)
+            order = np.argsort(tr, kind="stable")
+            tr, tsn = tr[order], tsn[order]
+            T = tr.size
+            # text score for every vector candidate (sorted lookup)
+            pos = np.searchsorted(tr, np.where(valid, rows_out, 0))
+            pos = np.minimum(pos, T - 1)
+            tmatch = valid & (tr[pos] == rows_out)
+            text_of_vec = np.where(tmatch, tsn[pos], 0.0)
+            # appended text-only candidates; a scatter over tmatch marks
+            # the rows already among the query's vector candidates
+            dup = np.zeros((B, T), bool)
+            bidx, fidx = np.nonzero(tmatch)
+            dup[bidx, pos[bidx, fidx]] = True
+            R_all = np.concatenate(
+                [rows_out, np.broadcast_to(tr, (B, T))], axis=1)
+            vec_all = np.concatenate(
+                [np.where(valid, vec_sim, 0.0), np.zeros((B, T))], axis=1)
+            text_all = np.concatenate(
+                [text_of_vec, np.broadcast_to(tsn, (B, T))], axis=1)
+            fused = alpha * vec_all + (1.0 - alpha) * text_all
+            fused[:, :F] = np.where(valid, fused[:, :F], -np.inf)
+            fused[:, F:] = np.where(dup, -np.inf, fused[:, F:])
+        else:
+            R_all = rows_out
+            fused = vec_sim
+
+        if decay and h.memory.enabled:
+            factors = fusion.decay_factors(
+                h.meta.decay, R_all, h.memory,
+                time.time() if now is None else now)
+            with np.errstate(invalid="ignore"):     # -inf * factor
+                fused = np.where(np.isfinite(fused), fused * factors, fused)
+
+        kk = min(k, fused.shape[1]) if fused.shape[1] else 0
+        if kk == 0:
             return _empty_hits(B, include_metadata, columnar)
-        d, rows_out = idx.search(
-            q, max(k, ef or 0), ef=ef,
-            allow_rows=allow_dev if allow_dev is not None else allow)
-        return self._assemble_fast(h, idx, np.asarray(d, np.float32),
-                                   np.asarray(rows_out, np.int64), B, k,
-                                   include_metadata, columnar=columnar)
+        part = np.argpartition(-fused, kk - 1, axis=1)[:, :kk]
+        psc = np.take_along_axis(fused, part, axis=1)
+        order = np.argsort(-psc, axis=1, kind="stable")
+        top = np.take_along_axis(part, order, axis=1)
+        top_sc = np.take_along_axis(psc, order, axis=1)
+        top_rows = np.take_along_axis(R_all, top, axis=1)
+        # a hit's distance: its vector candidate's, inf for a text-only hit
+        top_d = np.full(top.shape, np.inf)
+        from_vec = top < F
+        if F:
+            cand_d = np.take_along_axis(d, np.minimum(top, F - 1), axis=1)
+            cand_ok = np.take_along_axis(valid, np.minimum(top, F - 1),
+                                         axis=1)
+            top_d = np.where(from_vec & cand_ok, cand_d, np.inf)
+        # the host path answers in lists even for columnar="np", as the
+        # reference's does
+        return self._emit_topk(h, idx, top_sc, top_rows, top_d, B, k,
+                               include_metadata, bool(columnar))
+
+    def _emit_topk(self, h, idx, top_sc: np.ndarray, top_rows: np.ndarray,
+                   top_d: np.ndarray, B: int, k: int,
+                   include_metadata: bool, columnar: bool = False):
+        """Final hits from fused top-k arrays (device or host path): hits
+        with a -inf score or a row without an id are skipped; top_d is inf
+        for a text-only hit, whose distance is then omitted (None in the
+        columnar form)."""
+        kk = top_sc.shape[1]
+        fin = np.isfinite(top_sc)
+        row_to_ext = idx.ids.row_to_ext
+        n_rows = len(row_to_ext)
+        get_meta = h.meta.get
+        if columnar:
+            safe = np.clip(top_rows, 0, max(n_rows - 1, 0))
+            live = idx.ids.live_mask(max(n_rows, 1))
+            ok = fin & (top_rows >= 0) & (top_rows < n_rows) & live[safe]
+            if kk >= k and columnar == "np" and not include_metadata \
+                    and bool(ok[:, :k].all()):
+                ext_arr = idx.ids.exts_array()
+                return {"ids": ext_arr[safe[:, :k]].tolist(),
+                        "scores": np.ascontiguousarray(
+                            top_sc[:, :k], np.float32),
+                        "distances": np.ascontiguousarray(
+                            top_d[:, :k], np.float32)}
+            sc_l = top_sc.astype(np.float64).round(6).tolist()
+            d_l = top_d.astype(np.float64).round(5).tolist()
+        else:
+            sc_l = top_sc.tolist()
+            d_l = top_d.tolist()
+        fin_l = fin.tolist()
+        find_l = np.isfinite(top_d).tolist()
+        rows_l = top_rows.tolist()
+        col_ids, col_s, col_d, col_m = [], [], [], []
+        for b in range(B):
+            rb, sb, db = rows_l[b], sc_l[b], d_l[b]
+            fb, fdb = fin_l[b], find_l[b]
+            ids_b, s_b, d_b, m_b = [], [], [], []
+            for j, r in enumerate(rb):
+                if not fb[j] or not 0 <= r < n_rows:
+                    continue
+                ext = row_to_ext[r]
+                if ext is None:
+                    continue
+                ids_b.append(ext)
+                s_b.append(sb[j])
+                d_b.append(db[j] if fdb[j] else None)
+                if include_metadata:
+                    m_b.append(get_meta(r) or {})
+            col_ids.append(ids_b)
+            col_s.append(s_b)
+            col_d.append(d_b)
+            col_m.append(m_b)
+        if columnar:
+            out_c = {"ids": col_ids, "scores": col_s, "distances": col_d}
+            if include_metadata:
+                out_c["metadata"] = col_m
+            return out_c
+        out = []
+        for ids_b, s_b, d_b, m_b in zip(col_ids, col_s, col_d, col_m):
+            hits = []
+            for j, e in enumerate(ids_b):
+                hit = {"id": e, "score": s_b[j]}
+                if d_b[j] is not None:
+                    hit["distance"] = d_b[j]
+                if include_metadata:
+                    hit["metadata"] = m_b[j]
+                hits.append(hit)
+            out.append(hits)
+        return out
 
     def _assemble_fast(self, h, idx, d: np.ndarray, rows_out: np.ndarray,
                        B: int, k: int, include_metadata: bool,
@@ -679,6 +1036,14 @@ class Engine:
             chain.append(cur)
         return chain
 
+    def belief_state(self, index: str, node_id: str, *, k: int = 10,
+                     language: Optional[str] = None):
+        """VBeliefState (epistemic.go:22); see engine/epistemic.py."""
+        from . import epistemic
+        h = self._handle(index)
+        return epistemic.assess(self, index, node_id, k=k,
+                                language=language or h.language)
+
     # ------------------------------------------------------------------- KV
 
     def kv_set(self, key: str, value: bytes | str) -> None:
@@ -767,6 +1132,10 @@ def _empty_hits(B: int, include_metadata: bool, columnar):
     if include_metadata:
         out["metadata"] = [[] for _ in range(B)]
     return out
+
+
+def _is_zero(q: np.ndarray) -> bool:
+    return not np.any(q)
 
 
 def _cap_of(idx) -> int:

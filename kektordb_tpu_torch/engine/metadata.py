@@ -19,7 +19,7 @@ from typing import Any, Iterable, Optional
 
 import numpy as np
 
-from kektordb_tpu.text.bm25 import BM25Index
+from ..text.bm25 import BM25Index
 
 # fields whose string value is BM25-indexed when listed here
 INDEXED_FIELDS_KEY = "_indexed_fields"

@@ -2,7 +2,9 @@
 
 The kernels have a plain C interface, so they are compiled by `nvcc`
 straight into a shared library and loaded with `ctypes`; nothing includes
-PyTorch's headers, which keeps a cold build to seconds. The library is
+PyTorch's headers, which keeps a cold build to seconds. Each source is
+compiled to an object by its own `nvcc`, all started together, and the
+objects are linked into the one library. The library is
 built at first use into `build/kektordb_tpu_torch/<hash>/` beside the
 package, keyed by a hash of the sources and the flags, so an edit to a
 source rebuilds and an unchanged tree reuses the library.
@@ -25,8 +27,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" \
     / "kektordb_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 LIB_NAME = "libkektor_kernels.so"
 
 _lib = None
@@ -48,8 +51,9 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless a library for
-    these sources and flags exists; return its path. The compiler's
-    output (ptxas register and shared-memory use) is kept beside it in
+    these sources and flags exists; return its path. One compiler per
+    source runs at once, then one link. The compilers' output (ptxas
+    register and shared-memory use) is kept beside the library in
     build.log."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -61,13 +65,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
-    tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out / f"{src.stem}.{tag}.o" for src in sources]
+    jobs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+    logs = [job.communicate()[0] for job in jobs]
+    tmp = out / f"{LIB_NAME}.{tag}.tmp"
+    failed = [src.name for src, job in zip(sources, jobs) if job.returncode]
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append("the link")
+    (out / "build.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           f"{''.join(logs)[-4000:]}")
     os.replace(tmp, lib)          # atomic: a concurrent process never
     return lib                    # loads a half-written library
 
@@ -80,6 +99,10 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             fn = lib.kektor_scan_pass_a
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fn = lib.kektor_scan_vt
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             fn = lib.kektor_gather_dist

@@ -140,17 +140,30 @@ def pass_a(q: torch.Tensor, vectors: torch.Tensor, biasA: torch.Tensor,
     form = pass_a_form(q.dtype, vectors.dtype, fast=fast, exact=exact)
     if not vectors.is_cuda:
         return pass_a_plain(q, vectors, biasA, biasB, st=st, g=g, form=form)
+    out = launch_pass_a(q, vectors, biasA, biasB, st=st, g=g, form=form)
+    pass_a.launches += 1
+    return out
+
+
+def launch_pass_a(q, vectors, biasA, biasB, *, st: int, g: int, form: int,
+                  transposed: bool = False):
+    """Check the operands and launch csrc/scan_pass_a.cu in `form` on the
+    current stream: (gmin, garg) as `pass_a` returns them. `transposed`:
+    `vectors` is a bf16 arena vT [D, N], biasB is the constant 2 and is
+    not passed (None), and the kernel's VT entry `kektor_scan_vt` runs.
+    Counts nothing: each wrapper that launches it counts its own
+    launches."""
     B, D = q.shape
-    N = vectors.shape[0]
-    if vectors.ndim != 2 or vectors.shape[1] != D:
+    N = vectors.shape[1 if transposed else 0]
+    if vectors.ndim != 2 or vectors.shape[0 if transposed else 1] != D:
         raise ValueError(f"query {tuple(q.shape)} and arena "
                          f"{tuple(vectors.shape)} do not match")
-    if biasA.shape != (N,) or biasB.shape != (N,) \
-            or biasA.dtype != torch.float32 or biasB.dtype != torch.float32:
+    biases = (biasA,) if transposed else (biasA, biasB)
+    if any(b.shape != (N,) or b.dtype != torch.float32 for b in biases):
         raise ValueError("biasA and biasB must be float32 [N]")
     if st <= 0 or g <= 0 or st % g:
         raise ValueError(f"st={st} must be a positive multiple of g={g}")
-    for t in (q, vectors, biasA, biasB):
+    for t in (q, vectors, *biases):
         if t.device != vectors.device:
             raise ValueError("pass A operands must lie on one device")
         if not t.is_contiguous():
@@ -162,12 +175,15 @@ def pass_a(q: torch.Tensor, vectors: torch.Tensor, biasA: torch.Tensor,
     gmin = torch.empty((B, width), dtype=torch.float32, device=q.device)
     garg = torch.empty((B, width), dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.kektor_scan_pass_a(
-        q.data_ptr(), vectors.data_ptr(), biasA.data_ptr(), biasB.data_ptr(),
-        gmin.data_ptr(), garg.data_ptr(), B, N, D, st, g, form, stream)
+    args = (q.data_ptr(), vectors.data_ptr(),
+            *(b.data_ptr() for b in biases), gmin.data_ptr(),
+            garg.data_ptr(), B, N, D, st, g)
+    if transposed:
+        err = lib.kektor_scan_vt(*args, stream)
+    else:
+        err = lib.kektor_scan_pass_a(*args, form, stream)
     if err:
         raise RuntimeError(f"scan_pass_a launch failed: CUDA error {err}")
-    pass_a.launches += 1
     return gmin, garg
 
 

@@ -2,7 +2,8 @@
 sequence of engine calls on the same seeded data gives the same hit ids,
 with metadata filters, graph_root masks and deletes. Scores and distances
 are held to rtol 1e-5 with an absolute floor of 1e-4 (float32 sums in
-another order). The options the port defers raise NotImplementedError."""
+another order). The options the port defers raise NotImplementedError;
+text and decay search are held to the reference in test_torch_fuse.py."""
 
 import numpy as np
 import pytest
@@ -132,8 +133,9 @@ def test_engine_host_surface():
     eng.close()
 
 
-# (call, ported): serve_mode "auto" and "beam" came with the graph slice
-# and now run; the rest still raise, naming their ROADMAP item
+# (call, ported): serve_mode "auto" and "beam" came with the graph slice,
+# text_query with the fusion slice, and now run; the rest still raise,
+# naming their ROADMAP item
 @pytest.mark.parametrize("call,ported", [
     (lambda e: Engine(EngineConfig(device="cpu", data_dir="/nonexistent")),
      False),
@@ -143,7 +145,7 @@ def test_engine_host_surface():
     (lambda e: e.create_index("b", serve_mode="beam"), True),
     (lambda e: e.create_index("p", serve_mode="scan", serve_proj_dim=8),
      False),
-    (lambda e: e.search("t", np.ones(4), text_query="hello"), False),
+    (lambda e: e.search("t", np.ones(4), text_query="hello"), True),
 ], ids=[f"call{i}" for i in range(7)])
 def test_deferred_options_raise(call, ported):
     eng = Engine(EngineConfig(device="cpu", start_background=False)).open()
@@ -155,18 +157,21 @@ def test_deferred_options_raise(call, ported):
         eng.close()
         return
     call(eng)
-    name = eng.list_indexes()[0]              # "a" or "b", before "t"
-    eng.add(name, "x", np.ones(4))
-    assert eng.search(name, np.ones(4), k=1)[0][0]["id"] == "x"
+    name = eng.list_indexes()[0]       # "a" or "b" (before "t"), or "t"
+    eng.add(name, "x", np.full(4, 3.0))
+    assert eng.search(name, np.full(4, 3.0), k=1)[0][0]["id"] == "x"
     eng.close()
 
 
 def test_decay_enabled_raises():
+    """Named when a decay-enabled search was refused: since the fusion
+    slice it runs, through the device epilogue, and decay=False skips the
+    decay."""
     from kektordb_tpu_torch.engine import fusion
     eng = Engine(EngineConfig(device="cpu", start_background=False)).open()
     eng.create_index("t", serve_mode="scan")
     eng.add("t", "a", np.ones(4))
     eng.indexes["t"].memory = fusion.MemoryConfig(enabled=True)
-    with pytest.raises(NotImplementedError, match="decay"):
-        eng.search("t", np.ones(4))
+    assert eng.search("t", np.ones(4))[0][0]["id"] == "a"
+    assert eng.indexes["t"].decay_dev is not None
     assert eng.search("t", np.ones(4), decay=False)[0][0]["id"] == "a"
