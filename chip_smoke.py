@@ -7,20 +7,28 @@ Phases, one line each; any failure exits non-zero:
   1 device  the card's name and power limit (nvidia-smi)
   2 build   nvcc builds kektordb_tpu_torch/csrc into build/, one compiler
             per source at once, then one link (timed)
-  3 kernel  pass A (csrc/scan_pass_a.cu) against its plain PyTorch version
-            on the card, B=256, N=2^17, D=128, in every precision form,
-            and on two arenas whose last tile is ragged (N=2^17+77 and
-            2^17+37); then an arena with every row masked (inf, rows -1)
+  3 kernel  pass A against its plain PyTorch version on the card, B=256,
+            N=2^17, D=128, in every precision form (forms 1, 2, 5 on the
+            tensor-core kernel csrc/scan_pass_a_wgmma.cu, 0, 3, 4 on the
+            CUDA-core kernel csrc/scan_pass_a.cu; each line names its
+            kernel), and on two arenas whose last tile is ragged
+            (N=2^17+77 and 2^17+37); then the tensor-core kernel's edges:
+            B=200 (a last query slab cut short), D=100 (a depth tail),
+            D=768 (a query slab streamed with each depth chunk) and a bf16
+            arena at D=100 (200-byte rows, a stride no 16-byte copy
+            takes); then an arena with every row masked (inf, rows -1)
   4 main    the Engine's read path at SIFT-1M width: an hnsw index with
             serve_mode="scan", add_batch of 1,000,000 x 128 SIFT-like f32
             vectors (ids v{i}, seed 1234), 8 searches of 4096 queries,
             k=10; recall@10 against the exact oracle on 1024 queries must
             be >= 0.99 and the hits' distances must agree with the
             oracle's, the pass-A launch count must have grown, and a
-            filtered search must return only rows that satisfy the filter
+            filtered search must return only rows that satisfy the
+            filter; one search under the profiler (device time by op)
   5 times   pass A at the main path's shape (B=4096, N=2^20, fast form)
-            checked against the plain version as in phase 3, then kernel
-            and plain timed; ingest seconds, Engine.search QPS at B=4096
+            checked against the plain version as in phase 3, then kernel,
+            plain and torch.matmul of the product alone timed; ingest
+            seconds, Engine.search QPS at B=4096
   6 gather  gather-distance (csrc/gather_dist.cu) against its plain
             version at the graph's three shapes (build beam B=512 C=256,
             serving beam B=1024 C=128, scan re-rank B=4096 C=32), D=128,
@@ -68,7 +76,10 @@ Phases, one line each; any failure exits non-zero:
             update_decay_device, no rebuild); each against the host path
             as in phase 10; QPS of each and of STEADY more; one under the
             profiler
-Each path of phases 7 to 11 (the build, the scan search, the beam, vacuum,
+Kernel times are the card's own: the timed calls queue behind a sleep
+kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
+host's issue time per call is printed beside each. Each path of phases
+7 to 11 (the build, the scan search, the beam, vacuum,
 import, the two probes, the hybrid and decayed searches) runs with every
 launch count set to 0 just before it; its counts are read and printed just
 after, and a kernel the path runs must have launched. Then a JSON line of
@@ -104,6 +115,12 @@ RAGGED = (77, 37)
 HEAD_B, HEAD_N = 4096, 1 << 20
 RTOL = 1e-5
 DEV = "cuda"
+# phase 3's edges of the tensor-core kernel: (label, B, D, arena dtype)
+EDGE_CASES = (("B=200", 200, DIM, "f32"),
+              ("depth tail", KERNEL_B, 100, "f32"),
+              ("streamed query slab", KERNEL_B, 768, "f32"),
+              ("200-byte rows", KERNEL_B, 100, "bf16"))
+MATMUL_CHUNK = 1 << 17   # rows per torch.matmul of the product yardstick
 # phase 6: (name, B, C) of the graph's three gathered() shapes
 GATHER_SHAPES = (("build beam", 512, 8 * 32), ("serving beam", 1024, 4 * 32),
                  ("scan re-rank", 4096, 32))
@@ -171,19 +188,54 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device milliseconds per call over `reps` calls, after a warm
-    call, between CUDA events (the probes' timer)."""
-    from kektordb_tpu_torch.probes import device_ms as event_ms
-    return event_ms(torch.device(DEV), fn, reps, warm=1)
+def cuda_ms(torch, fn, reps: int):
+    """The card's own time per call over `reps` calls after a warm call,
+    the host's issue time per call, and whether the host was ahead (the
+    probes' timer, `probes.timed`)."""
+    from kektordb_tpu_torch.probes import timed
+    return timed(torch.device(DEV), fn, reps, warm=1)
+
+
+def issue_note(t) -> str:
+    """The host's side of a timing, for the phase lines."""
+    return (f"host issue {t.issue_ms:.4f} ms per call"
+            + ("" if t.ahead else ", host NOT ahead: the time holds host "
+               "gaps"))
+
+
+def matmul_ms(torch, q, v) -> float:
+    """Device ms of the product alone, a yardstick and not the function:
+    torch.matmul of the bf16-rounded operands, q [B, D] x v.T, in chunks
+    of MATMUL_CHUNK rows (the skinny probe's shape) into one bf16 output
+    per chunk size."""
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    n = vb.shape[0]
+    outs = {m: torch.empty((qb.shape[0], m), dtype=torch.bfloat16,
+                           device=DEV)
+            for m in {min(MATMUL_CHUNK, n - i)
+                      for i in range(0, n, MATMUL_CHUNK)}}
+
+    def run():
+        for i in range(0, n, MATMUL_CHUNK):
+            blk = vb[i:i + MATMUL_CHUNK]
+            torch.matmul(qb, blk.T, out=outs[blk.shape[0]])
+    return cuda_ms(torch, run, 3).ms
+
+
+def pass_a_bound(B, N, D, g, q_bytes, v_bytes) -> tuple[float, str]:
+    """Pass A's bound: q, the arena and both biases read once, gmin and
+    garg written once; 2 B N D operations at the bf16 rate (the forms
+    timed multiply bf16-rounded operands)."""
+    return bound(B * D * q_bytes + N * D * v_bytes + N * 8
+                 + B * (-(-N // g)) * 8, 2.0 * B * N * D, "bf16")
 
 
 def form_cases(torch, quant, dist):
     """(name, q, v, biasA, biasB, fast, exact) for every pass-A form at
     KERNEL_N rows, then two ragged arenas whose last tile is cut short:
     one with groups of one member, one with groups past the last row
-    (scores +inf). On the card, from one SIFT-like draw; a tenth of the
-    rows masked."""
+    (scores +inf), then EDGE_CASES. On the card, from SIFT-like draws; a
+    tenth of the rows masked."""
     from kektordb_tpu_torch.ops import scan
     n_all = KERNEL_N + max(RAGGED)
     X = make_sift_like(n_all + KERNEL_B, DIM, seed=7)
@@ -206,7 +258,7 @@ def form_cases(torch, quant, dist):
 
     n = KERNEL_N
     r_long, r_short = (KERNEL_N + r for r in RAGGED)
-    return [
+    cases = [
         ("f32", q32, *rows(n, v32, l2), False, False),
         ("f32_fast", q32, *rows(n, v32, l2), True, False),
         ("bf16", qb, *rows(n, vb, l2b), False, False),
@@ -217,6 +269,18 @@ def form_cases(torch, quant, dist):
         (f"int8 N={r_short}", qcodes, *rows(r_short, codes, cos8),
          False, False),
     ]
+    for label, b, d, arena in EDGE_CASES:
+        X = make_sift_like(KERNEL_N + b, d, seed=9)
+        v = torch.from_numpy(X[:KERNEL_N]).to(DEV)
+        q = torch.from_numpy(X[KERNEL_N:]).to(DEV)
+        if arena == "bf16":
+            v, q = v.to(torch.bfloat16), q.to(torch.bfloat16)
+        bA, bB = scan.serving_bias(v, (v.float() ** 2).sum(-1),
+                                   live[:KERNEL_N], dist.L2)
+        fast = arena == "f32"
+        cases.append((f"{arena}{'_fast' if fast else ''} {label}", q, v,
+                      bA, bB, fast, False))
+    return cases
 
 
 def exact_scores(torch, scan, q, v, biasA, biasB, form, b, rows):
@@ -290,8 +354,9 @@ def check_kernels(torch) -> float:
         kern = scan.pass_a(q, v, bA, bB, st=st, g=g, fast=fast, exact=exact)
         torch.cuda.synchronize()
         plain = scan.pass_a_plain(q, v, bA, bB, st=st, g=g, form=form)
-        worst = max(worst, compare(torch, name, q, v, bA, bB, st, g, form,
-                                   kern, plain))
+        worst = max(worst, compare(
+            torch, f"{name} D={q.shape[1]} [{scan.pass_a_kernel(form)}]", q,
+            v, bA, bB, st, g, form, kern, plain))
     # every row masked: inf scores, rows -1
     q = torch.ones((KERNEL_B, DIM), device=DEV)
     v = torch.zeros((KERNEL_N, DIM), device=DEV)
@@ -399,6 +464,13 @@ def main_path(torch, card: str) -> dict:
         raise AssertionError("filtered search broke its filter")
     print(f"phase main: filtered search, {len(hits)} hits, all cat = 'a'",
           flush=True)
+    dev, wall, top, _ = device_ms(torch, lambda: eng.search(
+        "sift", queries[:BATCH], k=K))
+    batch_ms = search_s * 1e3 / N_BATCHES
+    print(f"phase main: one Engine.search B={BATCH} under the profiler: "
+          f"device {dev:.3f} ms in {wall:.3f} ms wall; against the "
+          f"unprofiled {batch_ms:.3f} ms batch, idle {1 - dev / batch_ms:.3f}"
+          f"; device time by op: {top} [{card}]", flush=True)
     return {"ingest_s": ingest_s, "qps": N_BATCHES * BATCH / search_s,
             "recall": recall, "launches": launches}
 
@@ -407,9 +479,9 @@ def time_pass_a(torch, card: str) -> dict:
     """Phase 5: pass A (fast form, the serving read's candidate pass) at
     the main path's shape, B=4096, N=2^20 (ST=1024, G=16): one kernel
     call held against one plain call as in phase 3, then both timed in
-    turns on one card. Returns {"ms", "plain_ms", "max_abs_err",
-    "bound_ms", "bound_by"}; the fast form multiplies bf16-rounded
-    operands, so its operations count at the bf16 rate."""
+    turns on one card, and the product alone (`matmul_ms`). Returns
+    {"ms", "issue_ms", "plain_ms", "matmul_ms", "max_abs_err", "bound_ms",
+    "bound_by"}."""
     from kektordb_tpu_torch.ops import distance as dist
     from kektordb_tpu_torch.ops import scan
     X = make_sift_like(HEAD_N + HEAD_B, DIM, seed=11)
@@ -436,16 +508,18 @@ def time_pass_a(torch, card: str) -> dict:
     ks, ps = [], []
     for _ in range(2):
         ks.append(cuda_ms(torch, kernel, 5))
-        ps.append(cuda_ms(torch, plain, 3))
-    kms, pms = sum(ks) / 2, sum(ps) / 2
-    out_bytes = HEAD_B * (HEAD_N // g) * 8
-    bms, by = bound(HEAD_B * DIM * 4 + HEAD_N * DIM * 4 + HEAD_N * 8
-                    + out_bytes, 2.0 * HEAD_B * HEAD_N * DIM, "bf16")
-    print(f"phase times: pass A B={HEAD_B} N={HEAD_N} D={DIM} fast form: "
-          f"kernel {kms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
-          f"({by}) [{card}]", flush=True)
-    return {"ms": kms, "plain_ms": pms, "max_abs_err": err,
-            "bound_ms": bms, "bound_by": by}
+        ps.append(cuda_ms(torch, plain, 3).ms)
+    kms, pms = sum(t.ms for t in ks) / 2, sum(ps) / 2
+    mms = matmul_ms(torch, q, v)
+    bms, by = pass_a_bound(HEAD_B, HEAD_N, DIM, g, 4, 4)
+    print(f"phase times: pass A B={HEAD_B} N={HEAD_N} D={DIM} fast form "
+          f"[{scan.pass_a_kernel(form)}]: kernel "
+          + ", ".join(f"{t.ms:.3f}" for t in ks) + f" ms ({issue_note(ks[0])})"
+          f", plain {pms:.3f} ms, torch.matmul of the product alone "
+          f"{mms:.3f} ms, bound {bms:.3f} ms ({by}) [{card}]", flush=True)
+    return {"ms": kms, "issue_ms": ks[0].issue_ms, "plain_ms": pms,
+            "matmul_ms": mms, "max_abs_err": err, "bound_ms": bms,
+            "bound_by": by}
 
 
 def hold_gather(torch, label, v, ids, q, metric, **kw):
@@ -512,14 +586,14 @@ def check_gather(torch, card) -> dict:
 
             def plain():
                 dist.gathered_plain(v, ids, q, metric)
-            kms = cuda_ms(torch, kernel, 20)
-            pms = cuda_ms(torch, plain, 5)
-            times[f"{shape} {dt} {metric}"] = (kms, pms)
+            kt = cuda_ms(torch, kernel, 20)
+            pms = cuda_ms(torch, plain, 5).ms
+            times[f"{shape} {dt} {metric}"] = (kt.ms, pms, kt.issue_ms)
             print(f"phase gather {shape} B={B} C={C} {dt} {metric}: max|err| "
                   f"{err:.6g} ({ratio:.3g} of tol), +inf "
-                  f"{n_inf}; kernel {kms:.4f} ms, plain "
-                  f"{pms:.4f} ms [{card}]", flush=True)
-    kms, pms = times[f"{GATHER_SHAPES[0][0]} f32 {dist.L2}"]
+                  f"{n_inf}; kernel {kt.ms:.4f} ms ({issue_note(kt)}), "
+                  f"plain {pms:.4f} ms [{card}]", flush=True)
+    kms, pms, _ = times[f"{GATHER_SHAPES[0][0]} f32 {dist.L2}"]
     bms, by = bounds[f"{GATHER_SHAPES[0][0]} f32"]
     print("phase gather: bound by case "
           + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items())
@@ -578,7 +652,7 @@ def device_ms(torch, fn) -> tuple[float, float, str, int]:
     cuda = torch.autograd.DeviceType.CUDA
     traced = [sum(e.count for e in events if e.device_type == cuda
                   and name in e.key)
-              for name in ("pass_a_kernel", "gather_dist_kernel")]
+              for name in ("pass_a", "gather_dist_kernel")]
     seen = (f"; in the trace: scan_pass_a {traced[0]} of {launched[0]} "
             f"launched, gather_dist {traced[1]} of {launched[1]}")
     dev = sum(e.self_device_time_total for e in events
@@ -595,7 +669,7 @@ def device_ms(torch, fn) -> tuple[float, float, str, int]:
             name = e.key
         elif e.device_type == cuda and "gather_dist_kernel" in e.key:
             name = "gather_dist"
-        elif e.device_type == cuda and "pass_a_kernel" in e.key:
+        elif e.device_type == cuda and "pass_a" in e.key:
             name = "scan_pass_a"
         else:
             continue
@@ -852,23 +926,28 @@ def probes_phase(torch, card: str) -> dict:
     held("scan_reduce", red_kern, red_plain, n_all, *scan_proto.CHECK[1:])
 
     out = {}
+    mms = matmul_ms(torch, q, v[:PROBE_N])
     for name, kern, plain, (st, g) in (
             ("scan_vT", vt_kern, vt_plain, VT_TILE),
             ("scan_reduce", red_kern, red_plain, scan_proto.CHECK[1:])):
         ks, ps = [], []
         for _ in range(2):
             ks.append(cuda_ms(torch, lambda: kern(PROBE_N, st, g), 5))
-            ps.append(cuda_ms(torch, lambda: plain(PROBE_N, st, g), 3))
-        kms, pms = sum(ks) / 2, sum(ps) / 2
+            ps.append(cuda_ms(torch, lambda: plain(PROBE_N, st, g), 3).ms)
+        kms, pms = sum(t.ms for t in ks) / 2, sum(ps) / 2
+        # the probes' bias is one f32 vector (biasB is the constant 2)
         bms, by = bound(PROBE_B * DIM * 2 + PROBE_N * DIM * 2 + PROBE_N * 4
                         + PROBE_B * (PROBE_N // g) * 8,
                         2.0 * PROBE_B * PROBE_N * DIM, "bf16")
         print(f"phase probes: {name} B={PROBE_B} N={PROBE_N} D={DIM} "
-              f"ST={st} G={g}: kernel {kms:.3f} ms, plain {pms:.3f} ms, "
-              f"bound {bms:.3f} ms ({by}) [{card}]", flush=True)
-        out[name] = {"ms": kms, "plain_ms": pms, "bound_ms": bms,
-                     "bound_by": by, "max_abs_err": worst[name],
-                     "tile": f"ST={st} G={g}"}
+              f"ST={st} G={g} [wgmma]: kernel "
+              + ", ".join(f"{t.ms:.3f}" for t in ks)
+              + f" ms ({issue_note(ks[0])}), plain {pms:.3f} ms, "
+              f"torch.matmul of the product alone {mms:.3f} ms, bound "
+              f"{bms:.3f} ms ({by}) [{card}]", flush=True)
+        out[name] = {"ms": kms, "issue_ms": ks[0].issue_ms, "plain_ms": pms,
+                     "matmul_ms": mms, "bound_ms": bms, "bound_by": by,
+                     "max_abs_err": worst[name], "tile": f"ST={st} G={g}"}
     out["scan_vT"]["launches"] = mm_counts["scan_vT"]
     out["scan_reduce"]["launches"] = sp_counts["scan_reduce"]
     return out
@@ -986,7 +1065,7 @@ def hybrid_phase(torch, card: str):
           f"queries (exact oracle), min {RECALL_MIN}", flush=True)
     if recall < RECALL_MIN:
         raise AssertionError(f"hybrid alpha=1 recall {recall} < {RECALL_MIN}")
-    errs = held_on_path(torch, eng.indexes["rag"].index, Q, "hybrid")
+    errs = held_on_path(torch, eng.indexes["rag"].index, Q, "hybrid", card)
     profiled(torch, "hybrid", lambda: eng.search(
         "rag", Q, k=K, text_query=TEXT_QUERY), card,
         eng.indexes["rag"].index, Q)
@@ -1006,12 +1085,13 @@ def path_operands(torch, idx, Q):
     return (q, qn, bA, bB, *scan.kernel_tiles(s.vectors.shape[0]))
 
 
-def held_on_path(torch, idx, Q, label: str) -> dict:
+def held_on_path(torch, idx, Q, label: str, card: str) -> dict:
     """Pass A and gather-distance at the shapes a hybrid or decayed search
     of `idx` gives them, each held against its plain version: pass A in
     the fast form on the index's own arena and biases (as in phase 3),
-    then the re-rank's gather of RERANK_C candidates from pass B's rows
-    (as in phase 6). Returns each kernel's max |err|."""
+    timed there beside its bound and the product alone, then the
+    re-rank's gather of RERANK_C candidates from pass B's rows (as in
+    phase 6). Returns each kernel's max |err|."""
     from kektordb_tpu_torch.ops import scan
     q, qn, bA, bB, st, g = path_operands(torch, idx, Q)
     v = idx.state.vectors
@@ -1019,9 +1099,18 @@ def held_on_path(torch, idx, Q, label: str) -> dict:
     kern = scan.pass_a(q, v, bA, bB, st=st, g=g, fast=True)
     torch.cuda.synchronize()
     plain = scan.pass_a_plain(q, v, bA, bB, st=st, g=g, form=form)
-    err_a = compare(torch, f"{label} search's pass A", q, v, bA, bB, st, g,
+    err_a = compare(torch, f"{label} search's pass A "
+                    f"[{scan.pass_a_kernel(form)}]", q, v, bA, bB, st, g,
                     form, kern, plain)
     del kern, plain
+    t = cuda_ms(torch, lambda: scan.pass_a(q, v, bA, bB, st=st, g=g,
+                                           fast=True), 5)
+    bms, by = pass_a_bound(q.shape[0], v.shape[0], v.shape[1], g, 4, 4)
+    print(f"phase {label}: pass A at the search's shape (B={q.shape[0]}, "
+          f"N={v.shape[0]}, ST={st}, G={g}): kernel {t.ms:.3f} ms "
+          f"({issue_note(t)}), torch.matmul of the product alone "
+          f"{matmul_ms(torch, q, v):.3f} ms, bound {bms:.3f} ms ({by}) "
+          f"[{card}]", flush=True)
     _, rows = scan._scan_kernel(q, v, bA, bB, RERANK_C, fast=True)
     err_g, ratio, n_inf = hold_gather(
         torch, f"{label} search's re-rank", v, rows, q, idx.metric,
@@ -1061,7 +1150,7 @@ def profiled(torch, label: str, fn, card: str, idx, Q) -> None:
 
         def one():
             scan.pass_a(q, idx.state.vectors, bA, bB, st=st, g=g, fast=True)
-        alone = cuda_ms(torch, one, 5)
+        alone = cuda_ms(torch, one, 5).ms
         _, _, _, lost_alone = device_ms(torch, one)
         print(f"phase {label}: the trace lacks {lost} pass-A launch(es) of "
               f"the search; pass A alone at its shape (B={q.shape[0]}, "
@@ -1162,16 +1251,19 @@ def main() -> int:
           flush=True)
     # no single PyTorch call computes any of these kernels' functions
     # (a fused product + group min / argmin; a gather + distance), so
-    # library_ms is null for each
+    # library_ms is null for each; matmul_ms times the product alone, a
+    # yardstick of pass A's tensor-core work
     kernels = [{
         "name": "scan_pass_a", "route": "cuda",
-        "source": "kektordb_tpu_torch/csrc/scan_pass_a.cu",
+        "source": "kektordb_tpu_torch/csrc/scan_pass_a_wgmma.cu",
         "replaces": "kektordb_tpu/ops/scan.py:175",
         "launches": main["launches"],
         "max_abs_err": max(max_err, path_errs["scan_pass_a"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "issue_ms": head["issue_ms"],
+        "matmul_ms": head["matmul_ms"],
+        "other_forms_source": "kektordb_tpu_torch/csrc/scan_pass_a.cu"}, {
         "name": "gather_dist", "route": "cuda",
         "source": "kektordb_tpu_torch/csrc/gather_dist.cu",
         "replaces": "scripts/pallas_gather.py:120, "
@@ -1183,17 +1275,20 @@ def main() -> int:
         "bound_by": gather["bound_by"], "library_ms": None,
         "ms_by_case": {k: v[0] for k, v in gather["by_shape"].items()},
         "plain_ms_by_case": {k: v[1] for k, v in
+                             gather["by_shape"].items()},
+        "issue_ms_by_case": {k: v[2] for k, v in
                              gather["by_shape"].items()}}]
     for name, replaces in (("scan_vT", "scripts/matmul_ceiling.py:90"),
                            ("scan_reduce", "scripts/scan_pallas_proto.py:46")):
         pr = probes[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "kektordb_tpu_torch/csrc/scan_pass_a.cu",
+            "source": "kektordb_tpu_torch/csrc/scan_pass_a_wgmma.cu",
             "replaces": replaces, "launches": pr["launches"],
             "max_abs_err": pr["max_abs_err"], "ms": pr["ms"],
             "plain_ms": pr["plain_ms"], "bound_ms": pr["bound_ms"],
             "bound_by": pr["bound_by"], "library_ms": None,
+            "issue_ms": pr["issue_ms"], "matmul_ms": pr["matmul_ms"],
             "timed_at": pr["tile"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-// Fused-scan pass A for NVIDIA Hopper (sm_90a).
+// Fused-scan pass A for NVIDIA Hopper (sm_90a): the CUDA-core kernel and
+// the C entry points of both pass-A kernels.
 //
 // Replaces the Pallas kernel `_make_kernel`, launched by `_pass_a`
 // (kektordb_tpu/ops/scan.py). For every query b and every row tile of ST
@@ -10,50 +11,36 @@
 // [B, N] score matrix never does. On a tie the LARGEST m wins, as in the
 // TPU kernel. Rows >= N (a ragged last tile) score +inf.
 //
-// Precision forms (`form`), the TPU kernel's four plus a bf16 arena:
-//   0 f32       q f32,  v f32   full f32 FMA            (TPU: HIGHEST)
-//   1 f32 fast  q f32,  v f32   both rounded to bf16,   (TPU: DEFAULT, one
-//                               f32 accumulation         bf16 pass)
-//   2 bf16      q bf16, v bf16  f32 accumulation
-//   3 int8      q int8, v int8  int32 accumulation (__dp4a)
-//   4 asym      q f32,  v int8  codes cast to f32, full f32
-//   5 asym fast q f32,  v int8  q rounded to bf16, f32 accumulation
+// Precision forms (`form`), the TPU kernel's four plus a bf16 arena, and
+// the kernel that takes each (one kernel per form):
+//   0 f32       q f32,  v f32   full f32 FMA             CUDA cores (here)
+//   1 f32 fast  q f32,  v f32   both rounded to bf16,    tensor cores
+//                               f32 accumulation         (scan_pass_a_wgmma.cu)
+//   2 bf16      q bf16, v bf16  f32 accumulation         tensor cores
+//   3 int8      q int8, v int8  int32 accumulation       CUDA cores (__dp4a)
+//   4 asym      q f32,  v int8  codes cast to f32, f32   CUDA cores
+//   5 asym fast q f32,  v int8  q rounded to bf16, f32   tensor cores
+// Forms 0 and 4 (the exact mode) stay on the CUDA cores: no tensor-core
+// product is full f32, and TF32 would change their numbers. Form 3's s8
+// wgmma is later work. The transposed-arena probe (`kektor_scan_vt`) runs
+// on the tensor-core kernel.
 //
-// What bounds it on this card. At the serving shape (B = 4096 queries,
-// N = 2^20 rows, D = 128) one batch is 1.1 TFLOP over a 512 MiB f32 arena:
-// about 2,000 operations per byte read, far above the H100's ridge, so the
-// product is compute-bound and the output ([B, N/G], 1/G of the scores) is
-// what keeps it off the memory roof. This first version is a plain
-// shared-memory tiled product on the CUDA cores: a block holds 64 queries
-// x 64 groups, each thread a 4 x 4 register tile of (query, group) pairs,
-// and it walks the G members of its groups in turn, folding each member's
-// scores into a running min held in registers. So the group reduction
-// costs no memory traffic at all. It does not use the tensor cores
-// (wgmma), TMA or a per-tile top-k: those are later work.
-//
-// The same kernel serves the two scan probes of scripts/:
-//   * `scan_reduce` (scripts/scan_pallas_proto.py, `make_kernel`) is pass A
-//     in the bf16 form with biasB = 2: it goes through kektor_scan_pass_a
-//     with W = ST / G of 128, 256 or 512, so one tile spans several blocks
-//     along W (jblocks > 1).
-//   * `scan_vT` (scripts/matmul_ceiling.py) reads a TRANSPOSED bf16 arena
-//     vT [D, N] and computes bias - 2 * dots: the VT instantiation,
-//     entered by kektor_scan_vt. There, for member m of a tile, the
-//     block's 64 groups are the 64 contiguous rows t*ST + m*W + j0 ... +63,
-//     so at each depth k the block reads vT[k, row0 .. row0 + 63] as one
-//     coalesced 128-byte run (neighbouring threads take neighbouring rows);
-//     the row-major arena instead gives each thread a run along D. biasB
-//     is the constant 2 and is not read. At the probes' shape (B = 4096,
-//     N = 2^20, D = 128, G = 8) the [B, N/G] f32 + int32 output is 4.3 GB
-//     against 1.1 TFLOP, so the bound there is the output's bytes; this
-//     version, on the CUDA cores, is far from it either way.
+// What bounds the CUDA-core kernel: a batch at the serving shape (B = 4096
+// queries, N = 2^20 rows, D = 128) is 1.1 TFLOP, far above the H100's
+// ridge, so it is compute-bound, here at the f32 rate (67 TFLOP/s). It is
+// a plain shared-memory tiled product: a block holds 64 queries x 64
+// groups, each thread a 4 x 4 register tile of (query, group) pairs, and
+// it walks the G members of its groups in turn, folding each member's
+// scores into a running min held in registers, so the group reduction
+// costs no memory traffic.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "scan_pass_a.cuh"
 
 namespace {
 
@@ -66,23 +53,14 @@ constexpr int TN = 4;    // groups per thread
 constexpr int THREADS = (BQ / TM) * (BJ / TN);   // 256
 constexpr int PAD = 4;   // keeps rows 16-byte aligned for vector reads
 
-enum Form : int {
-  kF32 = 0, kF32Fast = 1, kBF16 = 2, kInt8 = 3, kAsym = 4, kAsymFast = 5
-};
-
 __device__ __forceinline__ float as_float(float x) { return x; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float as_float(int8_t x) {
   return static_cast<float>(x);
 }
 
-template <typename T, bool ROUND>
+template <typename T>
 __device__ __forceinline__ float load_float(const T* p, long i, bool ok) {
-  if (!ok) return 0.f;
-  const float x = as_float(p[i]);
-  return ROUND ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+  return ok ? as_float(p[i]) : 0.f;
 }
 
 // Four int8 values k..k+3 of one row packed for __dp4a; bytes past D are 0.
@@ -96,8 +74,7 @@ __device__ __forceinline__ int load_word(const int8_t* row, int k, int D) {
   return static_cast<int>(w);
 }
 
-// VT: v is the transposed arena [D, N] (bf16 only) and biasB is 2.
-template <typename TQ, typename TV, bool RQ, bool RV, bool INT, bool VT>
+template <typename TQ, typename TV, bool INT>
 __global__ void __launch_bounds__(THREADS)
 pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
               const float* __restrict__ biasA,
@@ -148,14 +125,12 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
                            : 0;
         } else {
           const int k = k0 + c;
-          qs[c][r] = load_float<TQ, RQ>(q, static_cast<long>(b) * D + k,
-                                        b < B && k < D);
+          qs[c][r] = load_float(q, static_cast<long>(b) * D + k,
+                                b < B && k < D);
         }
       }
       for (int e = threadIdx.x; e < BJ * BK; e += THREADS) {
-        // neighbouring threads: along D in a row-major arena, along the
-        // rows in a transposed one (both coalesced)
-        const int r = VT ? e % BJ : e / BK, c = VT ? e / BJ : e % BK;
+        const int r = e / BK, c = e % BK;   // neighbours along D
         const long row = row0 + r;
         const bool in = j0 + r < W && row < N;
         if constexpr (INT) {
@@ -165,9 +140,7 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
                         : 0;
         } else {
           const int k = k0 + c;
-          vs[c][r] = load_float<TV, RV>(
-              v, VT ? static_cast<long>(k) * N + row : row * D + k,
-              in && k < D);
+          vs[c][r] = load_float(v, row * D + k, in && k < D);
         }
       }
       __syncthreads();
@@ -199,7 +172,7 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
       const long row = tile * ST + static_cast<long>(m) * W + jj;
       const bool in = jj < W && row < N;
       const float A = in ? biasA[row] : INFINITY;
-      const float Bm = !in ? 0.f : VT ? 2.f : biasB[row];
+      const float Bm = in ? biasB[row] : 0.f;
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         // separate multiply and subtract (no FMA contraction), as the
@@ -232,8 +205,7 @@ pass_a_kernel(const TQ* __restrict__ q, const TV* __restrict__ v,
   }
 }
 
-template <typename TQ, typename TV, bool RQ, bool RV, bool INT,
-          bool VT = false>
+template <typename TQ, typename TV, bool INT>
 int launch(const void* q, const void* v, const void* biasA,
            const void* biasB, void* gmin, void* garg, int B, int N, int D,
            int ST, int G, cudaStream_t stream) {
@@ -244,7 +216,7 @@ int launch(const void* q, const void* v, const void* biasA,
   const long gy = (static_cast<long>(B) + BQ - 1) / BQ;
   if (gx > 0x7fffffffL || gy > 65535) return cudaErrorInvalidConfiguration;
   dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  pass_a_kernel<TQ, TV, RQ, RV, INT, VT><<<grid, THREADS, 0, stream>>>(
+  pass_a_kernel<TQ, TV, INT><<<grid, THREADS, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TV*>(v),
       static_cast<const float*>(biasA), static_cast<const float*>(biasB),
       static_cast<float*>(gmin), static_cast<int32_t*>(garg), B, N, D, ST,
@@ -257,6 +229,7 @@ int launch(const void* q, const void* v, const void* biasA,
 // C entry point, bound with ctypes by kektordb_tpu_torch/ops/scan.py.
 // q [B, D], v [N, D], biasA/biasB [N] f32, all contiguous on one card;
 // gmin [B, ceil(N/ST) * ST/G] f32 and garg (same shape, int32) are written.
+// Forms 1, 2 and 5 run the tensor-core kernel, 0, 3 and 4 this one.
 // Returns 0 or the CUDA error of the launch.
 extern "C" int kektor_scan_pass_a(const void* q, const void* v,
                                   const void* biasA, const void* biasB,
@@ -268,23 +241,19 @@ extern "C" int kektor_scan_pass_a(const void* q, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (form) {
     case kF32:
-      return launch<float, float, false, false, false>(
-          q, v, biasA, biasB, gmin, garg, B, N, D, ST, G, s);
-    case kF32Fast:
-      return launch<float, float, true, true, false>(
-          q, v, biasA, biasB, gmin, garg, B, N, D, ST, G, s);
-    case kBF16:
-      return launch<__nv_bfloat16, __nv_bfloat16, false, false, false>(
-          q, v, biasA, biasB, gmin, garg, B, N, D, ST, G, s);
+      return launch<float, float, false>(q, v, biasA, biasB, gmin, garg, B,
+                                         N, D, ST, G, s);
     case kInt8:
-      return launch<int8_t, int8_t, false, false, true>(
-          q, v, biasA, biasB, gmin, garg, B, N, D, ST, G, s);
+      return launch<int8_t, int8_t, true>(q, v, biasA, biasB, gmin, garg, B,
+                                          N, D, ST, G, s);
     case kAsym:
-      return launch<float, int8_t, false, false, false>(
-          q, v, biasA, biasB, gmin, garg, B, N, D, ST, G, s);
+      return launch<float, int8_t, false>(q, v, biasA, biasB, gmin, garg, B,
+                                          N, D, ST, G, s);
+    case kF32Fast:
+    case kBF16:
     case kAsymFast:
-      return launch<float, int8_t, true, false, false>(
-          q, v, biasA, biasB, gmin, garg, B, N, D, ST, G, s);
+      return pass_a_wgmma(q, v, biasA, biasB, gmin, garg, B, N, D, ST, G,
+                          form, false, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -293,14 +262,14 @@ extern "C" int kektor_scan_pass_a(const void* q, const void* v,
 // C entry point of the transposed-arena probe (`scan_vT`), bound with
 // ctypes by kektordb_tpu_torch/ops/scan_probe.py. q [B, D] bf16, vT [D, N]
 // bf16, bias [N] f32, contiguous on one card; gmin / garg as above, with
-// score = bias - 2 * dot. Returns 0 or the CUDA error of the launch.
+// score = bias - 2 * dot; the tensor-core kernel runs. Returns 0 or the
+// CUDA error of the launch.
 extern "C" int kektor_scan_vt(const void* q, const void* vT,
                               const void* bias, void* gmin, void* garg,
                               int B, int N, int D, int ST, int G,
                               void* stream) {
   if (B <= 0 || N <= 0 || D <= 0 || G <= 0 || ST <= 0 || ST % G)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<__nv_bfloat16, __nv_bfloat16, false, false, false, true>(
-      q, vT, bias, nullptr, gmin, garg, B, N, D, ST, G,
-      static_cast<cudaStream_t>(stream));
+  return pass_a_wgmma(q, vT, bias, nullptr, gmin, garg, B, N, D, ST, G, kBF16,
+                      true, static_cast<cudaStream_t>(stream));
 }

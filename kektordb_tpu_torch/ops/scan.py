@@ -8,9 +8,11 @@ metric and precision (see `serving_bias`); masked rows have biasA = +inf.
 Two routes, chosen by the reference's own size rule (`_use_kernel`):
 
 * Kernel route, arenas on a CUDA card with >= PALLAS_MIN_ROWS rows.
-  Pass A (`pass_a`, the CUDA kernel csrc/scan_pass_a.cu) reduces each
-  tile of ST rows to G-group minima and argmins, so only [B, N/G] reaches
-  device memory; pass B is a `torch.topk` over those minima and a rebuild
+  Pass A (`pass_a`) reduces each tile of ST rows to G-group minima and
+  argmins, so only [B, N/G] reaches device memory. Its forms whose
+  product is bf16 x bf16 run on the tensor cores (csrc/scan_pass_a_wgmma.cu,
+  `TENSOR_CORE_FORMS`), the full-f32 and int8 x int8 forms on the CUDA
+  cores (csrc/scan_pass_a.cu); pass B is a `torch.topk` over those minima and a rebuild
   of each winner's row. The reference's pass B uses the TPU's
   `approx_min_k` in approximate mode; the port's is always exact.
 * Exact blocked scan (`_scan_blocked`, the twin of the reference's
@@ -41,8 +43,24 @@ PALLAS_MIN_ROWS = 1 << 17
 FORM_F32, FORM_F32_FAST, FORM_BF16, FORM_INT8, FORM_ASYM, FORM_ASYM_FAST = \
     range(6)
 
-# the kernel's block covers 64 groups of one tile, so the GPU's own tile is
-# 64 groups wide (see kernel_tiles)
+# the forms whose product is bf16 x bf16 with f32 accumulation (f32 fast:
+# both rounded; asym fast: the query rounded, int8 codes exact in bf16)
+# run on the tensor-core kernel, csrc/scan_pass_a_wgmma.cu; the others on
+# the CUDA-core kernel, csrc/scan_pass_a.cu. One kernel per form.
+TENSOR_CORE_FORMS = frozenset({FORM_F32_FAST, FORM_BF16, FORM_ASYM_FAST})
+
+# (query dtype, arena dtype) of each form, as the kernels read them
+FORM_DTYPES = {
+    FORM_F32: (torch.float32, torch.float32),
+    FORM_F32_FAST: (torch.float32, torch.float32),
+    FORM_BF16: (torch.bfloat16, torch.bfloat16),
+    FORM_INT8: (torch.int8, torch.int8),
+    FORM_ASYM: (torch.float32, torch.int8),
+    FORM_ASYM_FAST: (torch.float32, torch.int8),
+}
+
+# both kernels' blocks cover 64 groups of one tile, so the GPU's own tile
+# is 64 groups wide (see kernel_tiles)
 KERNEL_GROUPS = 64
 
 # scores the plain pass A materializes at once (512 MiB of f32)
@@ -84,6 +102,15 @@ def pass_a_form(q_dtype: torch.dtype, v_dtype: torch.dtype, *,
     if v_dtype == torch.int8 and q_dtype == torch.float32:
         return FORM_ASYM if exact and not fast else FORM_ASYM_FAST
     raise TypeError(f"pass A takes no query {q_dtype} x arena {v_dtype}")
+
+
+def pass_a_kernel(form: int, transposed: bool = False) -> str:
+    """The kernel that runs `form` on the card: "wgmma" (tensor cores) or
+    "cuda-core". The transposed-arena probe is bf16 on the tensor cores."""
+    if form not in FORM_DTYPES or transposed and form != FORM_BF16:
+        raise ValueError(f"pass A has no form {form} "
+                         f"(transposed={transposed})")
+    return "wgmma" if form in TENSOR_CORE_FORMS else "cuda-core"
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +162,7 @@ def pass_a(q: torch.Tensor, vectors: torch.Tensor, biasA: torch.Tensor,
 
     Group j of tile t covers rows t*st + j + m*(st/g), m in [0, g); garg
     holds the winning m (the largest on a tie). On a CUDA tensor this
-    launches csrc/scan_pass_a.cu and counts the launch in
+    launches the form's kernel (`pass_a_kernel`) and counts the launch in
     `pass_a.launches`; on a CPU tensor it runs `pass_a_plain`."""
     form = pass_a_form(q.dtype, vectors.dtype, fast=fast, exact=exact)
     if not vectors.is_cuda:
@@ -147,12 +174,20 @@ def pass_a(q: torch.Tensor, vectors: torch.Tensor, biasA: torch.Tensor,
 
 def launch_pass_a(q, vectors, biasA, biasB, *, st: int, g: int, form: int,
                   transposed: bool = False):
-    """Check the operands and launch csrc/scan_pass_a.cu in `form` on the
-    current stream: (gmin, garg) as `pass_a` returns them. `transposed`:
-    `vectors` is a bf16 arena vT [D, N], biasB is the constant 2 and is
-    not passed (None), and the kernel's VT entry `kektor_scan_vt` runs.
+    """Check the operands and launch pass A in `form` on the current
+    stream (the C entry `kektor_scan_pass_a` picks the form's kernel):
+    (gmin, garg) as `pass_a` returns them. `transposed`: `vectors` is a
+    bf16 arena vT [D, N], biasB is the constant 2 and is not passed
+    (None), and the entry `kektor_scan_vt` runs the tensor-core kernel.
     Counts nothing: each wrapper that launches it counts its own
-    launches."""
+    launches. Any B, N and D, and any arena stride, are taken."""
+    pass_a_kernel(form, transposed)
+    if (q.dtype, vectors.dtype) != FORM_DTYPES[form]:
+        raise TypeError(f"form {form} takes query x arena "
+                        f"{FORM_DTYPES[form]}, not {q.dtype} x "
+                        f"{vectors.dtype}")
+    if q.ndim != 2:
+        raise ValueError(f"query must be [B, D], not {tuple(q.shape)}")
     B, D = q.shape
     N = vectors.shape[1 if transposed else 0]
     if vectors.ndim != 2 or vectors.shape[0 if transposed else 1] != D:

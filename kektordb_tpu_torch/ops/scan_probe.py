@@ -4,7 +4,9 @@ arena (the L2 serving score of ops/scan.py with biasB = 2).
 
 * `scan_vT` replaces `scan_vT` of scripts/matmul_ceiling.py: a
   TRANSPOSED arena vT [D, N], launched through `scan.launch_pass_a` as
-  csrc/scan_pass_a.cu's `kektor_scan_vt` (the kernel's VT instantiation).
+  the C entry `kektor_scan_vt`, which runs the tensor-core pass A
+  (csrc/scan_pass_a_wgmma.cu); its producer transposes the arena tiles
+  on their way to shared memory.
 * `scan_reduce` replaces `scan_reduce` of `make_kernel` in
   scripts/scan_pallas_proto.py: a row-major arena v [N, D]. Its function
   is pass A's bf16 form with biasB = 2 (`dots * 2` is exact), so it
@@ -15,7 +17,7 @@ pass A's group layout: group j of tile t covers rows t*st + j + m*(st/g),
 and garg holds the winning member m, the largest on a tie, as the TPU
 kernels' `where(scores == gmin, m, garg)` fold gives. A ragged last tile
 scores +inf past N. The TPU kernels' query tile BT has no counterpart: the
-card's block always covers 64 queries.
+card's block always covers 128 queries.
 
 The TPU kernel's `with_arg=False` variant (garg written as zeros) is not
 ported: the running argmin costs registers and one select per member,

@@ -11,8 +11,9 @@ port of scripts/matmul_ceiling.py.
 3. `scan_vT` (ops/scan_probe.py, the CUDA kernel replacing the script's
    Pallas kernel) over a transposed bf16 arena vT [D, N] at B=4096,
    N=2^20, D=128, ST=4096, G=8.
-Each is timed between CUDA events after two warm calls; off the card
-nothing is timed. Data is drawn on the device from `seed`.
+Each is timed on the card alone (`probes.timed`: CUDA events around
+calls queued behind a sleep) after two warm calls; off the card nothing
+is timed. Data is drawn on the device from `seed`.
 """
 
 from __future__ import annotations

@@ -6,12 +6,13 @@ scripts/scan_pallas_proto.py.
 `scan_reduce` (ops/scan_probe.py: bias - 2 * dots with a strided G-group
 min / argmin over a row-major bf16 arena, launched as pass A's bf16 form)
 at B=4096, N=2^20, D=128 for each (BT, ST, G) of the script's sweep. BT,
-the TPU's query tile, has no counterpart on the card (a block covers 64
+the TPU's query tile, has no counterpart on the card (a block covers 128
 queries); ST and G set the tile and the groups. Then the script's no-arg
 line, and its check: the (512, 2048, 8) result on the first 8 queries and
 one tile against a float64 recomputation from the same bf16 inputs, where
-the first member wins a tie. Timed between CUDA events after two warm
-calls; off the card nothing is timed. Data is drawn on the device from
+the first member wins a tie. Timed on the card alone (`probes.timed`:
+CUDA events around calls queued behind a sleep) after two warm calls;
+off the card nothing is timed. Data is drawn on the device from
 `seed`.
 """
 

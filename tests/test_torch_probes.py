@@ -168,3 +168,16 @@ def test_bias_takes_the_scripts_shapes_only():
         scan_probe._bias(torch.zeros(6, dtype=torch.float64), 6)
     assert scan_probe._bias(torch.zeros((1, 6)), 6).shape == (6,)
     assert scan_probe._bias(torch.zeros(6), 6).shape == (6,)
+
+
+def test_timer_gives_no_card_time_on_the_cpu():
+    """The device-only timer runs the call once off the card and returns
+    no time (a CPU time is never reported as the card's)."""
+    from kektordb_tpu_torch import probes
+    calls = []
+    assert probes.timed(torch.device("cpu"), lambda: calls.append(1),
+                        5) is None
+    assert probes.device_ms(torch.device("cpu"), lambda: calls.append(1),
+                            5) is None
+    assert calls == [1, 1]
+    assert probes.rate(None, 1.0).startswith("not timed")

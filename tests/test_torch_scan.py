@@ -132,20 +132,25 @@ def test_blocked_scan_more_k_than_rows():
     assert (tr[:, 6:] == -1).all()
 
 
-# (name, kind, fast, exact, bf16-rounded inputs)
-FORMS = [("f32_exact", "l2", False, True, False),
-         ("int8_sym", "int8_sym", False, False, False),
-         ("asym_exact", "int8_asym_l2", False, True, False),
-         ("fast", "l2", True, False, True)]
+# (name, kind, fast, exact, bf16-rounded inputs, D); D=100 is no multiple
+# of 16, the tensor-core kernel's depth step (its tail is zero-filled)
+FORMS = [("f32_exact", "l2", False, True, False, 32),
+         ("int8_sym", "int8_sym", False, False, False, 32),
+         ("asym_exact", "int8_asym_l2", False, True, False, 32),
+         ("fast", "l2", True, False, True, 32),
+         ("fast_d100", "l2", True, False, True, 100),
+         ("asym_fast_d100", "int8_asym_l2", False, False, True, 100),
+         ("int8_sym_d100", "int8_sym", False, False, False, 100)]
 
 
-def _pass_a_inputs(kind, round_bf16):
-    X, norms, Q, qn, metric, quantum = _case(kind, n=2048, d=32, b=32,
+def _pass_a_inputs(kind, round_bf16, d=32):
+    X, norms, Q, qn, metric, quantum = _case(kind, n=2048, d=d, b=32,
                                              seed=9)
     if round_bf16:
-        X = np.asarray(jnp.asarray(X).astype(jnp.bfloat16), np.float32)
         Q = np.asarray(jnp.asarray(Q).astype(jnp.bfloat16), np.float32)
-        norms = (X * X).sum(1)
+        if X.dtype == np.float32:
+            X = np.asarray(jnp.asarray(X).astype(jnp.bfloat16), np.float32)
+            norms = (X * X).sum(1)
     live = np.random.default_rng(3).random(X.shape[0]) > 0.05
     biasA, biasB = jscan.serving_bias(
         jnp.asarray(X), jnp.asarray(norms), jnp.asarray(live), metric,
@@ -161,10 +166,11 @@ def _tpu_tiles(X, Q, fast, exact):
     return st, min(jscan.g_for(X.shape[0]), st // 128)
 
 
-@pytest.mark.parametrize("name,kind,fast,exact,rnd", FORMS,
+@pytest.mark.parametrize("name,kind,fast,exact,rnd,d", FORMS,
                          ids=[f[0] for f in FORMS])
-def test_plain_pass_a_matches_pallas_interpret(name, kind, fast, exact, rnd):
-    X, Q, biasA, biasB = _pass_a_inputs(kind, rnd)
+def test_plain_pass_a_matches_pallas_interpret(name, kind, fast, exact, rnd,
+                                               d):
+    X, Q, biasA, biasB = _pass_a_inputs(kind, rnd, d)
     st, g = _tpu_tiles(X, Q, fast, exact)
     jg, ja = jscan._pass_a(jnp.asarray(Q), jnp.asarray(X),
                            jnp.asarray(biasA), jnp.asarray(biasB),
@@ -273,3 +279,68 @@ def test_gpu_tiles_and_forms():
     assert tscan.pass_a_form(f32, i8) == tscan.FORM_ASYM_FAST
     with pytest.raises(TypeError):
         tscan.pass_a_form(bf, f32)
+
+
+@pytest.mark.parametrize("form", range(6))
+def test_form_kernel_route(form):
+    """Forms whose product is bf16 x bf16 (f32 fast, bf16, asym fast) run
+    on the tensor-core kernel, the full-f32 and int8 x int8 forms on the
+    CUDA-core kernel; only the bf16 form takes a transposed arena."""
+    want = "wgmma" if form in (tscan.FORM_F32_FAST, tscan.FORM_BF16,
+                               tscan.FORM_ASYM_FAST) else "cuda-core"
+    assert tscan.pass_a_kernel(form) == want
+    assert (form in tscan.TENSOR_CORE_FORMS) == (want == "wgmma")
+    if form == tscan.FORM_BF16:
+        assert tscan.pass_a_kernel(form, transposed=True) == "wgmma"
+    else:
+        with pytest.raises(ValueError):
+            tscan.pass_a_kernel(form, transposed=True)
+
+
+def test_form_dtypes_follow_pass_a_form():
+    for form, (qd, vd) in tscan.FORM_DTYPES.items():
+        fast = form in (tscan.FORM_F32_FAST,)
+        exact = form in (tscan.FORM_F32, tscan.FORM_ASYM)
+        assert tscan.pass_a_form(qd, vd, fast=fast, exact=exact) == form
+    with pytest.raises(ValueError):
+        tscan.pass_a_kernel(6)
+
+
+def _operands(B=4, N=64, D=8, qd=torch.float32, vd=torch.float32):
+    return (torch.zeros((B, D), dtype=qd), torch.zeros((N, D), dtype=vd),
+            torch.zeros(N), torch.full((N,), 2.0))
+
+
+# (name, change to the operands or keywords, error) for launch_pass_a's
+# checks, all made in Python before the library is loaded
+LAUNCH_RULES = [
+    ("form_dtype", dict(form=tscan.FORM_BF16), TypeError),
+    ("arena_dtype", dict(v=torch.zeros((64, 8), dtype=torch.int8)),
+     TypeError),
+    ("depth_mismatch", dict(v=torch.zeros((64, 9))), ValueError),
+    ("query_1d", dict(q=torch.zeros(8)), ValueError),
+    ("bias_shape", dict(bA=torch.zeros(63)), ValueError),
+    ("bias_dtype", dict(bB=torch.full((64,), 2.0, dtype=torch.float64)),
+     ValueError),
+    ("st_not_multiple_of_g", dict(st=30, g=4), ValueError),
+    ("arena_not_contiguous", dict(v=torch.zeros((8, 64)).T), ValueError),
+    ("transposed_f32", dict(transposed=True, v=torch.zeros((8, 64)),
+                            bB=None), ValueError),
+    ("unknown_form", dict(form=7), ValueError),
+]
+
+
+@pytest.mark.parametrize("name,change,err", LAUNCH_RULES,
+                         ids=[r[0] for r in LAUNCH_RULES])
+def test_launch_pass_a_shape_rules(name, change, err, monkeypatch):
+    def no_library():
+        raise AssertionError("the checks let a bad launch through")
+    monkeypatch.setattr(tscan.native, "load", no_library)
+    q, v, bA, bB = _operands()
+    kw = dict(q=q, v=v, bA=bA, bB=bB, st=32, g=4, form=tscan.FORM_F32_FAST,
+              transposed=False)
+    kw.update(change)
+    with pytest.raises(err):
+        tscan.launch_pass_a(kw["q"], kw["v"], kw["bA"], kw["bB"],
+                            st=kw["st"], g=kw["g"], form=kw["form"],
+                            transposed=kw["transposed"])
