@@ -27,14 +27,25 @@ Phases, one line each; any failure exits non-zero:
             filter; one search under the profiler (device time by op)
   5 times   pass A at the main path's shape (B=4096, N=2^20, fast form)
             checked against the plain version as in phase 3, then kernel,
-            plain and torch.matmul of the product alone timed; ingest
-            seconds, Engine.search QPS at B=4096
+            plain and torch.matmul of the product alone timed; the same for
+            the CUDA-core forms 0, 3, 4 (f32 exact, int8 x int8, exact
+            asymmetric) with their bounds; ingest seconds, Engine.search
+            QPS at B=4096
   6 gather  gather-distance (csrc/gather_dist.cu) against its plain
-            version at the graph's three shapes (build beam B=512 C=256,
-            serving beam B=1024 C=128, scan re-rank B=4096 C=32), D=128,
-            f32 and bf16 arenas of 2^20 rows, L2 and cosine, 40% of ids
-            -1: the same +inf positions and every entry within RTOL of
-            |q|^2 + |v|^2 + 2|q||v|; kernel and plain timed
+            version at the cases of probes.gather_cold: the graph's three
+            shapes (build beam B=512 C=256, serving beam B=1024 C=128, scan
+            re-rank B=4096 C=32) on f32 and bf16 arenas of 2^20 SIFT-like
+            rows, L2 and cosine, 40% of ids -1; the TPU scripts' shape
+            (B=4096 C=256, bf16, all ids valid and 40% -1); bf16 D=100
+            (4-byte chunks) and f32 D=768 (long rows); and, check only,
+            int64 ids, a bf16 query on an f32 arena, the arena one element
+            off a 16-byte boundary (4-byte chunks for f32, the scalar route
+            for bf16), C=1 and a ragged B, C, and ids past the arena (+inf):
+            the same +inf positions and every entry within RTOL of
+            |q|^2 + |v|^2 + 2|q||v|. Kernel and plain timed with cold rows:
+            the calls rotate over enough fresh id sets that the others
+            touch 4x the 50 MB L2 between two uses of one; each case's
+            bound and share of it printed
   7 graph   the default index: Engine.create_index with every default
             (serve_mode "auto": the graph is built on insert), add_batch of
             GRAPH_N SIFT-like rows (seed 1234), timed; Engine.search at
@@ -76,12 +87,22 @@ Phases, one line each; any failure exits non-zero:
             update_decay_device, no rebuild); each against the host path
             as in phase 10; QPS of each and of STEADY more; one under the
             profiler
+ 12 bf16    the default index at precision "bfloat16" (bf16 arena, bf16
+            queries): add_batch of BF16_N SIFT-like rows (seed 1237), timed;
+            Engine.search B=4096 (scan) recall@10 >= 0.99 and beam B=1024,
+            ef_search=100, recall@10 >= 0.95, QPS, both against the exact
+            oracle over the f32 rows; one more build chunk under the
+            profiler with each gather-distance call in a record_function
+            range: the chunk's kernels by name, gather-distance's share of
+            its device time, and no kernel but gather-distance's inside a
+            range (the wrapper launches no conversion)
 Kernel times are the card's own: the timed calls queue behind a sleep
 kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
 host's issue time per call is printed beside each. Each path of phases
 7 to 11 (the build, the scan search, the beam, vacuum,
 import, the two probes, the hybrid and decayed searches) runs with every
-launch count set to 0 just before it; its counts are read and printed just
+launch count set to 0 just before it (and the bf16 build and beam of phase
+12); its counts are read and printed just
 after, and a kernel the path runs must have launched. Then a JSON line of
 the kernels (each with its bound: the larger of its bytes over the HBM
 rate and its operations over the peak rate of their type), the card's
@@ -121,11 +142,8 @@ EDGE_CASES = (("B=200", 200, DIM, "f32"),
               ("streamed query slab", KERNEL_B, 768, "f32"),
               ("200-byte rows", KERNEL_B, 100, "bf16"))
 MATMUL_CHUNK = 1 << 17   # rows per torch.matmul of the product yardstick
-# phase 6: (name, B, C) of the graph's three gathered() shapes
-GATHER_SHAPES = (("build beam", 512, 8 * 32), ("serving beam", 1024, 4 * 32),
-                 ("scan re-rank", 4096, 32))
+# phase 6: the SIFT-like arena's rows (the cases: probes.gather_cold.CASES)
 GATHER_N = 1 << 20
-GATHER_INVALID = 0.4
 # phase 7: rows of the default (graph) index, and the beam's batch
 GRAPH_N = 1_000_000
 BEAM_B, BEAM_BATCHES, BEAM_RECALL_MIN = 1024, 4, 0.95
@@ -145,11 +163,13 @@ VOCAB, WORDS = 5000, (8, 16)
 TEXT_QUERY = "t40 t300 t1200"
 DAY = 86400.0
 REINFORCED = 64
+# phase 12: rows of the bf16 default index
+BF16_N, BF16_SEED = 500_000, 1237
 FUSE_TOL = 1e-5
 RERANK_C = 32        # the scan re-rank's candidates (kf) at k = 2 * K
 # the bound: NVIDIA's H100 SXM figures (dense), at the card's power limit
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def make_sift_like(n: int, d: int = 128, seed: int = 1234) -> np.ndarray:
@@ -517,9 +537,65 @@ def time_pass_a(torch, card: str) -> dict:
           + ", ".join(f"{t.ms:.3f}" for t in ks) + f" ms ({issue_note(ks[0])})"
           f", plain {pms:.3f} ms, torch.matmul of the product alone "
           f"{mms:.3f} ms, bound {bms:.3f} ms ({by}) [{card}]", flush=True)
+    forms = time_cuda_core_forms(torch, card, q, v, bA, bB)
     return {"ms": kms, "issue_ms": ks[0].issue_ms, "plain_ms": pms,
-            "matmul_ms": mms, "max_abs_err": err, "bound_ms": bms,
+            "matmul_ms": mms, "max_abs_err": max(err, forms), "bound_ms": bms,
             "bound_by": by}
+
+
+def time_cuda_core_forms(torch, card, q32, v32, bA, bB) -> float:
+    """Phase 5's CUDA-core forms (csrc/scan_pass_a.cu) at the serving shape:
+    f32 exact (form 0) on the f32 arena, int8 x int8 (form 3) and the exact
+    asymmetric form (4) on its int8 codes (cosine), each held against its
+    plain version as in phase 3, then kernel and plain timed in turns. The
+    bound takes 2 B N D operations at the rate of the product's type (f32
+    for forms 0 and 4, int8 for form 3) against the bytes read once.
+    Returns the largest max |gmin err|."""
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import quantize as quant
+    from kektordb_tpu_torch.ops import scan
+    vn, qn = dist.normalize(v32), dist.normalize(q32)
+    qs = quant.train(vn)
+    codes, cnorms = quant.quantize(qs, vn)
+    qcodes, _ = quant.quantize(qs, qn)
+    live = torch.ones(HEAD_N, dtype=torch.bool, device=DEV)
+    cA, cB = scan.serving_bias(codes, cnorms, live, dist.COSINE)
+    st, g = scan.kernel_tiles(HEAD_N)
+    worst = 0.0
+    for name, q, v, biasA, biasB, exact, kind in (
+            ("f32 exact", q32, v32, bA, bB, False, "f32"),
+            ("int8", qcodes, codes, cA, cB, False, "int8"),
+            ("asym exact", qn, codes, cA, cB, True, "f32")):
+        form = scan.pass_a_form(q.dtype, v.dtype, fast=False, exact=exact)
+
+        def kernel():
+            return scan.pass_a(q, v, biasA, biasB, st=st, g=g, exact=exact)
+
+        def plain():
+            return scan.pass_a_plain(q, v, biasA, biasB, st=st, g=g,
+                                     form=form)
+        kern = kernel()
+        torch.cuda.synchronize()
+        worst = max(worst, compare(
+            torch, f"{name}, serving shape [{scan.pass_a_kernel(form)}]",
+            q, v, biasA, biasB, st, g, form, kern, plain()))
+        del kern
+        ks, ps = [], []
+        for _ in range(2):
+            ks.append(cuda_ms(torch, kernel, 3))
+            ps.append(cuda_ms(torch, plain, 2).ms)
+        bms, by = bound(HEAD_B * DIM * q.element_size()
+                        + HEAD_N * DIM * v.element_size() + HEAD_N * 8
+                        + HEAD_B * (-(-HEAD_N // g)) * 8,
+                        2.0 * HEAD_B * HEAD_N * DIM, kind)
+        kms = sum(t.ms for t in ks) / 2
+        print(f"phase times: pass A B={HEAD_B} N={HEAD_N} D={DIM} {name} "
+              f"(form {form}) [{scan.pass_a_kernel(form)}]: kernel "
+              + ", ".join(f"{t.ms:.3f}" for t in ks)
+              + f" ms ({issue_note(ks[0])}), plain {sum(ps) / 2:.3f} ms, "
+              f"bound {bms:.3f} ms ({by}, {kind}), share {bms / kms:.3f} "
+              f"[{card}]", flush=True)
+    return worst
 
 
 def hold_gather(torch, label, v, ids, q, metric, **kw):
@@ -547,59 +623,103 @@ def hold_gather(torch, label, v, ids, q, metric, **kw):
     return float(err.max()), ratio, int(inf_k.sum())
 
 
+def gather_checks(torch, v, q, ids, metric) -> list:
+    """Phase 6's check-only cases beside the timed ones, from one case's
+    operands: (label, v, ids, q) for int64 ids, a bf16 query on an f32
+    arena, the arena one element past a 16-byte boundary (4-byte chunks for
+    f32, the scalar route for bf16), one candidate per query (`descend`)
+    and a ragged B, C."""
+    out = [("int64 ids", v, ids.long(), q)]
+    if v.dtype == torch.float32:
+        out.append(("bf16 query", v, ids, q.to(torch.bfloat16)))
+    flat = torch.empty(v.numel() + 1, dtype=v.dtype, device=DEV)
+    odd = flat[1:].view(v.shape)
+    odd.copy_(v)
+    out.append(("arena one element off", odd, ids, q))
+    out.append(("C=1", v, ids[:, :1].contiguous(), q))
+    out.append(("B=3 C=5", v, ids[:3, :5].contiguous(), q[:3]))
+    return out
+
+
 def check_gather(torch, card) -> dict:
-    """Phase 6. Returns {"max_abs_err", "ms", "plain_ms", "bound_ms",
-    "bound_by" (the build beam's f32 L2 case, the graph's hottest call),
-    "by_shape"}. The bound counts what these ids need: ids, queries and
-    outputs once, and one arena row per valid id (f32 or bf16); per valid
-    id a dot and |v|^2 (4 D operations, at the f32 rate)."""
+    """Phase 6. Each case of `probes.gather_cold.CASES` (the graph's three
+    shapes with f32 and bf16 arenas, L2 and cosine; the TPU scripts' shape;
+    200-byte and long rows) held against the plain version, then
+    kernel and plain timed with cold rows (`gather_cold.cold_timing`: the
+    calls rotate over enough id sets that the other sets touch 4x the L2
+    between two uses of one). Returns {"max_abs_err", "ms", "plain_ms",
+    "bound_ms", "bound_by" (the build beam's f32 L2 case, the default
+    index's hottest call), "by_case"}."""
     from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.probes import gather_cold as gc
+    dev = torch.device(DEV)
     X = make_sift_like(GATHER_N + 4096, DIM, seed=13)
     v32 = torch.from_numpy(X[:GATHER_N]).to(DEV)
     q32 = torch.from_numpy(X[GATHER_N:]).to(DEV)
-    arenas = {
+    sift = {
         ("f32", dist.L2): (v32, q32),
         ("bf16", dist.L2): (v32.to(torch.bfloat16), q32.to(torch.bfloat16)),
         ("f32", dist.COSINE): (dist.normalize(v32), dist.normalize(q32)),
         ("bf16", dist.COSINE): (dist.normalize(v32).to(torch.bfloat16),
                                 dist.normalize(q32)),
     }
-    rng = np.random.default_rng(14)
-    worst, times, bounds = 0.0, {}, {}
-    for shape, B, C in GATHER_SHAPES:
-        ids_np = rng.integers(0, GATHER_N, size=(B, C)).astype(np.int32)
-        ids_np[rng.random((B, C)) < GATHER_INVALID] = -1
-        ids = torch.from_numpy(ids_np).to(DEV)
-        valid = int((ids_np >= 0).sum())
-        for dt, row_bytes in (("f32", 4 * DIM), ("bf16", 2 * DIM)):
-            bounds[f"{shape} {dt}"] = bound(
-                B * C * 8 + B * DIM * 4 + valid * row_bytes,
-                valid * 4.0 * DIM, "f32")
-        for (dt, metric), (v, qa) in arenas.items():
-            q = qa[:B]
-            err, ratio, n_inf = hold_gather(
-                torch, f"gather {shape} {dt} {metric}", v, ids, q, metric)
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    worst, by_case = 0.0, {}
+    for n, case in enumerate(gc.CASES):
+        if (case.D, case.N) == (DIM, GATHER_N):
+            metrics = (dist.L2, dist.COSINE) \
+                if case.name in gc.GRAPH_SHAPES else (dist.L2,)
+            arenas = {m: sift[(case.arena, m)] for m in metrics}
+        else:                     # the other routes: Gaussian rows
+            v = torch.randn((case.N, case.D), generator=gen, device=DEV)
+            q = torch.randn((case.B, case.D), generator=gen, device=DEV)
+            if case.arena == "bf16":
+                v, q = v.to(torch.bfloat16), q.to(torch.bfloat16)
+            arenas = {dist.L2: (v, q)}
+        rb = gc.row_bytes(case.D, case.arena)
+        sets = gc.id_sets(case.B, case.C, case.N, case.invalid, rb,
+                          seed=100 + n, device=dev)
+        for metric, (v, qa) in arenas.items():
+            q = qa[:case.B]
+            label = f"{case.name} {case.arena} {metric}"
+            err, ratio, n_inf = hold_gather(torch, f"gather {label}", v,
+                                            sets[0], q, metric)
             worst = max(worst, err)
-
-            def kernel():
-                dist.gathered(v, ids, q, metric)
-
-            def plain():
-                dist.gathered_plain(v, ids, q, metric)
-            kt = cuda_ms(torch, kernel, 20)
-            pms = cuda_ms(torch, plain, 5).ms
-            times[f"{shape} {dt} {metric}"] = (kt.ms, pms, kt.issue_ms)
-            print(f"phase gather {shape} B={B} C={C} {dt} {metric}: max|err| "
-                  f"{err:.6g} ({ratio:.3g} of tol), +inf "
-                  f"{n_inf}; kernel {kt.ms:.4f} ms ({issue_note(kt)}), "
-                  f"plain {pms:.4f} ms [{card}]", flush=True)
-    kms, pms, _ = times[f"{GATHER_SHAPES[0][0]} f32 {dist.L2}"]
-    bms, by = bounds[f"{GATHER_SHAPES[0][0]} f32"]
-    print("phase gather: bound by case "
-          + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items())
-          + f" [{card}]", flush=True)
-    return {"max_abs_err": worst, "ms": kms, "plain_ms": pms,
-            "bound_ms": bms, "bound_by": by, "by_shape": times}
+            kt = gc.cold_timing(dev, lambda ids: dist.gathered(
+                v, ids, q, metric), sets)
+            pt = gc.cold_timing(dev, lambda ids: dist.gathered_plain(
+                v, ids, q, metric), sets)
+            bms, by = gc.bound_ms(sets, case.D, rb, q.element_size())
+            by_case[label] = {"ms": kt.ms, "plain_ms": pt.ms,
+                              "issue_ms": kt.issue_ms, "bound_ms": bms,
+                              "bound_by": by, "share": bms / kt.ms}
+            print(f"phase gather {label} B={case.B} C={case.C} D={case.D} "
+                  f"N={case.N} [{dist.gather_route(v)}]: max|err| "
+                  f"{err:.6g} ({ratio:.3g} of tol), +inf {n_inf}; cold rows "
+                  f"over {len(sets)} id sets: kernel {kt.ms:.4f} ms "
+                  f"({issue_note(kt)}), bound {bms:.4f} ms ({by}), share "
+                  f"{bms / kt.ms:.3f}; plain {pt.ms:.4f} ms [{card}]",
+                  flush=True)
+            if n < 2 and metric == dist.L2:         # f32, bf16
+                for extra, ev, eids, eq in gather_checks(torch, v, q,
+                                                         sets[0], metric):
+                    err, ratio, n_inf = hold_gather(
+                        torch, f"gather {label}, {extra}", ev, eids, eq,
+                        metric)
+                    worst = max(worst, err)
+                    print(f"phase gather {label}, {extra} "
+                          f"[{dist.gather_route(ev)}]: max|err| "
+                          f"{err:.6g} ({ratio:.3g} of tol), +inf {n_inf}",
+                          flush=True)
+                past = torch.full((2, 3), v.shape[0], dtype=torch.int32,
+                                  device=DEV)
+                if not torch.isinf(dist.gathered(v, past, q[:2],
+                                                 metric)).all():
+                    raise AssertionError("ids past the arena must score +inf")
+    head = by_case[f"{gc.CASES[0].name} f32 {dist.L2}"]
+    return {"max_abs_err": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "by_case": by_case}
 
 
 def counted(torch, path: str, fn, need: tuple[str, ...]):
@@ -652,7 +772,7 @@ def device_ms(torch, fn) -> tuple[float, float, str, int]:
     cuda = torch.autograd.DeviceType.CUDA
     traced = [sum(e.count for e in events if e.device_type == cuda
                   and name in e.key)
-              for name in ("pass_a", "gather_dist_kernel")]
+              for name in ("pass_a", "gather_dist")]
     seen = (f"; in the trace: scan_pass_a {traced[0]} of {launched[0]} "
             f"launched, gather_dist {traced[1]} of {launched[1]}")
     dev = sum(e.self_device_time_total for e in events
@@ -667,7 +787,7 @@ def device_ms(torch, fn) -> tuple[float, float, str, int]:
     for e in events:
         if e.device_type != cuda and e.key.startswith("aten::"):
             name = e.key
-        elif e.device_type == cuda and "gather_dist_kernel" in e.key:
+        elif e.device_type == cuda and "gather_dist" in e.key:
             name = "gather_dist"
         elif e.device_type == cuda and "pass_a" in e.key:
             name = "scan_pass_a"
@@ -750,9 +870,9 @@ def graph_path(torch, card: str) -> dict:
     eng = Engine(EngineConfig(device=DEV, start_background=False)).open()
     eng.create_index("graph")                      # every default
     ids = [f"g{i}" for i in range(GRAPH_N)]
-    _, build_s, _ = counted(torch, "graph build (Engine.add_batch)",
-                            lambda: eng.add_batch("graph", ids, base),
-                            ("gather_dist",))
+    _, build_s, build_counts = counted(
+        torch, "graph build (Engine.add_batch)",
+        lambda: eng.add_batch("graph", ids, base), ("gather_dist",))
     idx = eng.indexes["graph"].index
     res, _, _ = counted(torch, "Engine.search (scan)",
                         lambda: eng.search("graph", queries, k=K),
@@ -810,7 +930,8 @@ def graph_path(torch, card: str) -> dict:
     eng.close()
     return {"build_s": build_s, "beam_qps": BEAM_BATCHES * BEAM_B / beam_s,
             "beam_recall": beam_recall, "scan_recall": scan_recall,
-            "beam_launches": beam_counts["gather_dist"]}
+            "beam_launches": beam_counts["gather_dist"],
+            "build_launches": build_counts["gather_dist"]}
 
 
 def vacuum_and_import(torch, card: str) -> None:
@@ -1208,6 +1329,141 @@ def decay_phase(torch, eng, Q, card: str) -> None:
     eng.close()
 
 
+GATHER_RANGE = "kektor::gather_dist"
+# the host's calls that put work on the card, as the profiler names them
+LAUNCH_CALLS = ("LaunchKernel", "Memcpy", "Memset")
+
+
+def chunk_kernels(torch, idx, ext_ids, rows, card: str) -> float:
+    """One build chunk of `idx` (HNSWIndex._commit) under the profiler, each
+    gather-distance call inside a record_function range. Prints the
+    chunk's device kernels by name (count, device ms) and, for each range,
+    the host's launch calls inside it (on the range's thread, within its
+    time): one each, the gather kernel, or the wrapper launched a
+    conversion beside it (raises). Returns gather-distance's share of the
+    chunk's device time."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kektordb_tpu_torch.ops import distance as dist
+    inner = dist._gather_dist
+
+    def marked(*args):
+        with record_function(GATHER_RANGE):
+            return inner(*args)
+    before = dist.gathered.launches
+    torch.cuda.synchronize()
+    dist._gather_dist = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            idx._commit(ext_ids, rows, idx.config.ef_construction)
+            torch.cuda.synchronize()
+    finally:
+        dist._gather_dist = inner
+    launched = dist.gathered.launches - before
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e.device_type == cuda:
+            c = by_name.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us() / 1e3
+    total = sum(ms for _, ms in by_name.values())
+    gather_ms = sum(ms for name, (_, ms) in by_name.items()
+                    if "gather_dist" in name)
+    host = [e for e in events if e.device_type != cuda]
+    calls = [e for e in host if any(n in e.name for n in LAUNCH_CALLS)]
+    per_range = [[c.name for c in calls if c.thread == r.thread
+                  and r.time_range.start <= c.time_range.start
+                  and c.time_range.end <= r.time_range.end]
+                 for r in host if r.name == GATHER_RANGE]
+    spread = Counter(len(x) for x in per_range)
+    extra = sorted({n for x in per_range if len(x) > 1 for n in x})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    share = gather_ms / total if total else float("nan")
+    print(f"phase graph bf16: one build chunk under the profiler: "
+          f"{sum(c for c, _ in by_name.values())} kernels, device "
+          f"{total:.3f} ms; by name (count, ms): "
+          + "; ".join(f"{name[:60]} ({c}, {ms:.3f})" for name, (c, ms) in top)
+          + f" [{card}]", flush=True)
+    print(f"phase graph bf16: gather-distance in the chunk: {launched} "
+          f"calls counted, {len(per_range)} traced; host launch calls per "
+          f"call: " + ", ".join(f"{k}: {v} calls" for k, v in
+                                sorted(spread.items()))
+          + f"; {gather_ms:.3f} ms of device time, {share:.1%} of the "
+          f"chunk's [{card}]", flush=True)
+    if extra:
+        raise AssertionError(f"gather-distance's wrapper put more than one "
+                             f"launch on the card: {extra}")
+    return share
+
+
+def graph_bf16_phase(torch, card: str) -> dict:
+    """Phase 12: the default index at precision "bfloat16" (bf16 arena and
+    bf16-encoded queries), built and served."""
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.ops import distance as dist
+    X = make_sift_like(BF16_N + BATCH, DIM, seed=BF16_SEED)
+    base, queries = X[:BF16_N], X[BF16_N:]
+    eng = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    eng.create_index("graph_bf16", precision="bfloat16")
+    _, build_s, build_counts = counted(
+        torch, "bf16 graph build (Engine.add_batch)",
+        lambda: eng.add_batch("graph_bf16", [f"h{i}" for i in range(BF16_N)],
+                              base), ("gather_dist",))
+    idx = eng.indexes["graph_bf16"].index
+    if idx.state.vectors.dtype != torch.bfloat16:
+        raise AssertionError("precision bfloat16 did not give a bf16 arena")
+    res, _, _ = counted(torch, "bf16 index Engine.search (scan)",
+                        lambda: eng.search("graph_bf16", queries, k=K),
+                        ("scan_pass_a",))
+    idx.search(queries[:BEAM_B], K, mode="beam")   # warm
+
+    def beam():
+        return [idx.search(queries[i * BEAM_B:(i + 1) * BEAM_B], K,
+                           mode="beam") for i in range(BEAM_BATCHES)]
+    beams, beam_s, beam_counts = counted(
+        torch, "bf16 index HNSWIndex.search mode='beam'", beam,
+        ("gather_dist",))
+    for d, _ in beams:
+        if not np.isfinite(d).all() or d.shape != (BEAM_B, K):
+            raise AssertionError("bf16 beam returned a wrong shape or "
+                                 "non-finite distance")
+    gt = dist.brute_force_topk(
+        torch.from_numpy(queries[:RECALL_QUERIES]).to(DEV),
+        torch.from_numpy(base).to(DEV), K)[1].cpu().numpy()
+    scan_recall = recall_at(np.array([[int(x["id"][1:]) for x in h]
+                                      for h in res[:RECALL_QUERIES]]), gt)
+    beam_recall = recall_at(beams[0][1][:RECALL_QUERIES], gt)
+    qps = BEAM_BATCHES * BEAM_B / beam_s
+    print(f"phase graph bf16: Engine.create_index(precision='bfloat16'), "
+          f"add_batch {BF16_N} x {DIM} built in {build_s:.3f} s "
+          f"(gather_dist launches {build_counts['gather_dist']}); "
+          f"Engine.search B={BATCH} (scan) recall@{K} {scan_recall:.4f}; "
+          f"beam B={BEAM_B} ef_search={idx.config.ef_search}: recall@{K} "
+          f"{beam_recall:.4f}, {qps:.1f} QPS (gather_dist launches "
+          f"{beam_counts['gather_dist']}), against the exact oracle over "
+          f"the f32 rows [{card}]", flush=True)
+    if scan_recall < RECALL_MIN:
+        raise AssertionError(f"bf16 scan recall {scan_recall} < {RECALL_MIN}")
+    if beam_recall < BEAM_RECALL_MIN:
+        raise AssertionError(f"bf16 beam recall {beam_recall} < "
+                             f"{BEAM_RECALL_MIN}")
+    ch = idx.config.chunk
+    extra = make_sift_like(ch, DIM, seed=BF16_SEED + 1)
+    share = chunk_kernels(torch, idx, [f"x{i}" for i in range(ch)], extra,
+                          card)
+    eng.close()
+    return {"build_s": build_s, "beam_qps": qps, "scan_recall": scan_recall,
+            "beam_recall": beam_recall, "chunk_gather_share": share,
+            "build_launches": build_counts["gather_dist"],
+            "beam_launches": beam_counts["gather_dist"],
+            "build_launches": build_counts["gather_dist"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1241,6 +1497,7 @@ def main() -> int:
     probes = probes_phase(torch, card)
     eng, Q, path_errs = hybrid_phase(torch, card)
     decay_phase(torch, eng, Q, card)
+    bf16 = graph_bf16_phase(torch, card)
 
     leaked = [m for m in sys.modules
               if m in ("jax", "jaxlib", "kektordb_tpu")
@@ -1273,11 +1530,13 @@ def main() -> int:
         "ms": gather["ms"],
         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
         "bound_by": gather["bound_by"], "library_ms": None,
-        "ms_by_case": {k: v[0] for k, v in gather["by_shape"].items()},
-        "plain_ms_by_case": {k: v[1] for k, v in
-                             gather["by_shape"].items()},
-        "issue_ms_by_case": {k: v[2] for k, v in
-                             gather["by_shape"].items()}}]
+        "by_case": gather["by_case"],
+        "launches_by_path": {
+            "graph build (1M f32)": graph["build_launches"],
+            "beam (f32 index)": graph["beam_launches"],
+            "graph build (500k bf16)": bf16["build_launches"],
+            "beam (bf16 index)": bf16["beam_launches"]},
+        "chunk_share_bf16_build": bf16["chunk_gather_share"]}]
     for name, replaces in (("scan_vT", "scripts/matmul_ceiling.py:90"),
                            ("scan_reduce", "scripts/scan_pallas_proto.py:46")):
         pr = probes[name]

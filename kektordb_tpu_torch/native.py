@@ -91,24 +91,31 @@ def build() -> Path:
     return lib                    # loads a half-written library
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry point -> argument types (each returns an int: 0 or a CUDA error);
+# ctypes would otherwise pass every int as 32 bits and cut the pointers
+SIGNATURES = {
+    "kektor_scan_pass_a": [_P] * 6 + [_I] * 6 + [_P],
+    "kektor_scan_vt": [_P] * 5 + [_I] * 5 + [_P],
+    "kektor_gather_dist": [_P, _I] * 3 + [_P, _L, _L, _I, _L, _I, _P],
+    "kektor_gather_dist_route": [_I, _I, _P],
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Set the argument and result types of the entry points `names` on
+    a loaded kernel library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.kektor_scan_pass_a
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            fn = lib.kektor_scan_vt
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            fn = lib.kektor_gather_dist
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                           + [ctypes.c_long] + [ctypes.c_int] * 2
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build())))
     return _lib

@@ -159,18 +159,34 @@ def gathered_plain(vectors: torch.Tensor, ids: torch.Tensor,
     return torch.where(ids < 0, INF, d)
 
 
-_VDTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}      # arena and query
+_IDTYPE = {torch.int32: 0, torch.int64: 1}
 _METRIC = {L2: 0, COSINE: 1}
 
 
+def _stream(device: torch.device) -> int:
+    """The current CUDA stream of `device`, as the kernels take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _gather_dist(vectors: torch.Tensor, ids: torch.Tensor,
-                 queries: torch.Tensor, metric: str) -> torch.Tensor:
-    """Launch csrc/gather_dist.cu: [B, C] f32 distances; raises on what the
-    kernel does not take. Ids at or past the arena's last row score +inf
-    (the plain version would raise on them)."""
-    if vectors.dtype not in _VDTYPE or vectors.ndim != 2:
+                 queries: torch.Tensor, metric: str,
+                 lib=None) -> torch.Tensor:
+    """Launch csrc/gather_dist.cu: [B, C] f32 distances in one launch. Ids
+    (int32 or int64) and queries (f32 or bf16) are read in place, so no
+    conversion runs beside the kernel; raises on what the kernel does not
+    take. Ids at or past the arena's last row score +inf (the plain
+    version would raise on them). `lib`: another build of the kernel with
+    the same C interface (probes/gather_cold.py); the port's by default."""
+    if vectors.dtype not in _DTYPE or vectors.ndim != 2:
         raise TypeError(f"gather_dist takes an f32 or bf16 [N, D] arena, "
                         f"not {vectors.dtype} {tuple(vectors.shape)}")
+    if ids.dtype not in _IDTYPE:
+        raise TypeError(f"gather_dist takes int32 or int64 ids, not "
+                        f"{ids.dtype}")
+    if queries.dtype not in _DTYPE:
+        raise TypeError(f"gather_dist takes f32 or bf16 queries, not "
+                        f"{queries.dtype}")
     if metric not in _METRIC:
         raise ValueError(f"unknown metric {metric!r}")
     B, C = ids.shape
@@ -180,21 +196,34 @@ def _gather_dist(vectors: torch.Tensor, ids: torch.Tensor,
                          f"{tuple(ids.shape)} and arena width {D}")
     if ids.device != vectors.device or queries.device != vectors.device:
         raise ValueError("gather_dist operands must lie on one device")
-    if not vectors.is_contiguous():
-        raise ValueError("the arena must be contiguous")
-    if B * C == 0:
-        return torch.empty((B, C), dtype=torch.float32, device=ids.device)
-    ids32 = ids.to(torch.int32).contiguous()
-    q32 = queries.float().contiguous()
+    for name, t in (("arena", vectors), ("ids", ids), ("queries", queries)):
+        if not t.is_contiguous():
+            raise ValueError(f"gather_dist: the {name} must be contiguous")
     out = torch.empty((B, C), dtype=torch.float32, device=ids.device)
-    err = native.load().kektor_gather_dist(
-        ids32.data_ptr(), q32.data_ptr(), vectors.data_ptr(), out.data_ptr(),
-        B, C, D, vectors.shape[0], _VDTYPE[vectors.dtype], _METRIC[metric],
-        torch.cuda.current_stream(vectors.device).cuda_stream)
+    if B * C == 0:
+        return out
+    err = (lib or native.load()).kektor_gather_dist(
+        ids.data_ptr(), _IDTYPE[ids.dtype], queries.data_ptr(),
+        _DTYPE[queries.dtype], vectors.data_ptr(), _DTYPE[vectors.dtype],
+        out.data_ptr(), B, C, D, vectors.shape[0], _METRIC[metric],
+        _stream(vectors.device))
     if err:
         raise RuntimeError(f"gather_dist launch failed: CUDA error {err}")
     gathered.launches += 1
     return out
+
+
+def gather_route(vectors: torch.Tensor) -> str:
+    """The route csrc/gather_dist.cu takes on this arena: row chunks of 16
+    or 4 bytes with TM chunks a lane per row (the lanes per row fixed at
+    compile time for the common widths), or the scalar route."""
+    code = native.load().kektor_gather_dist_route(
+        vectors.shape[1], _DTYPE[vectors.dtype], vectors.data_ptr())
+    if not code:
+        return "scalar"
+    lpr, rest = divmod(code, 10000)
+    return f"{rest // 100}-byte chunks, TM={rest % 100}" \
+        + (f", {lpr} lanes a row fixed" if lpr else "")
 
 
 gathered.launches = 0

@@ -11,7 +11,11 @@ the function of csrc/gather_dist.cu) against the JAX package.
   and C set small, within 1e-5 of |q|^2 + |v|^2 + 2|q||v| (the magnitude
   of the terms the L2 expansion cancels).
 The scripts are imported by path and not edited. The kernel itself runs
-only on the card (chip_smoke.py holds it against `gathered_plain`)."""
+only on the card (chip_smoke.py holds it against `gathered_plain`); here
+its wrapper is checked with the library replaced by a recorder: ids
+(int32, int64) and queries (f32, bf16) are handed over in place, and
+what the kernel does not take is refused. The cold-row probe
+(`probes.gather_cold`) is checked for its id sets and bound."""
 
 import importlib.util
 from pathlib import Path
@@ -24,7 +28,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from kektordb_tpu.ops import distance as jdist
+from kektordb_tpu_torch import native
 from kektordb_tpu_torch.ops import distance as dist
+from kektordb_tpu_torch.probes import gather_cold
 
 RTOL = 1e-5
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
@@ -148,3 +154,112 @@ def test_cuda_route_refuses_what_the_kernel_does_not_take():
         dist._gather_dist(v, ids, torch.zeros((2, 4)), "manhattan")
     with pytest.raises(ValueError):
         dist._gather_dist(v[:, ::2], ids, torch.zeros((2, 2)), "euclidean")
+    # the kernel reads ids and queries in place: they must be contiguous,
+    # and of a type it reads
+    with pytest.raises(ValueError):
+        dist._gather_dist(v, torch.zeros((3, 2), dtype=torch.int32).T,
+                          torch.zeros((2, 4)), "euclidean")
+    with pytest.raises(ValueError):
+        dist._gather_dist(v, ids, torch.zeros((4, 2)).T, "euclidean")
+    with pytest.raises(TypeError):
+        dist._gather_dist(v, ids.to(torch.int16), torch.zeros((2, 4)),
+                          "euclidean")
+    with pytest.raises(TypeError):
+        dist._gather_dist(v, ids.float(), torch.zeros((2, 4)), "euclidean")
+    with pytest.raises(TypeError):
+        dist._gather_dist(v, ids, torch.zeros((2, 4), dtype=torch.float64),
+                          "euclidean")
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def kektor_gather_dist(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("arena", ["float32", "bfloat16"])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("idtype", ["int32", "int64"])
+def test_cuda_route_reads_ids_and_queries_in_place(monkeypatch, arena, qdtype,
+                                                   idtype):
+    """The wrapper hands the kernel the caller's own ids and queries (the
+    pointers are their data_ptr(): no conversion, no copy) with the dtype
+    codes the kernel reads, and counts one launch."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(native, "load", lambda: lib)
+    monkeypatch.setattr(dist, "_stream", lambda device: 77)
+    v = torch.zeros((50, 8), dtype=getattr(torch, arena))
+    ids = torch.arange(12, dtype=getattr(torch, idtype)).reshape(3, 4)
+    q = torch.ones((3, 8), dtype=getattr(torch, qdtype))
+    before = dist.gathered.launches
+    out = dist._gather_dist(v, ids, q, "cosine")
+    assert dist.gathered.launches == before + 1
+    assert out.shape == (3, 4) and out.dtype == torch.float32
+    (args,) = lib.calls
+    code = {"float32": 0, "bfloat16": 1, "int32": 0, "int64": 1}
+    assert args == (ids.data_ptr(), code[idtype], q.data_ptr(), code[qdtype],
+                    v.data_ptr(), code[arena], out.data_ptr(), 3, 4, 8, 50,
+                    1, 77)
+
+
+@pytest.mark.parametrize("precision,metric", [
+    ("float32", "euclidean"), ("float32", "cosine"),
+    ("bfloat16", "euclidean"), ("bfloat16", "cosine")])
+def test_plain_int64_ids_bf16_queries_match_reference(precision, metric):
+    """`gathered_plain` with int64 ids and bf16 queries (as a bf16 index's
+    beam hands them over) against the JAX package's `gathered` given the
+    same bf16 queries: rtol 1e-5, equal +inf positions."""
+    v, q, ids = _inputs(20, 36, 250, 24, seed=5,
+                        normalize=metric == "cosine")
+    jdt = jnp.bfloat16 if precision == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if precision == "bfloat16" else torch.float32
+    qb = jnp.asarray(q).astype(jnp.bfloat16)
+    want = np.asarray(jdist.gathered(jnp.asarray(v).astype(jdt),
+                                     jnp.asarray(ids), qb, metric))
+    got = dist.gathered_plain(
+        torch.from_numpy(v).to(tdt), torch.from_numpy(ids.astype(np.int64)),
+        torch.from_numpy(q).to(torch.bfloat16), metric).numpy()
+    np.testing.assert_array_equal(np.isinf(got), ids < 0)
+    np.testing.assert_array_equal(np.isinf(want), ids < 0)
+    fin = ids >= 0
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", gather_cold.CASES,
+                         ids=lambda c: f"{c.name} {c.arena}")
+def test_cold_id_sets_leave_four_l2_between_uses(case):
+    """Phase 6's timed calls rotate over enough id sets that the rows the
+    other sets touch exceed 4x the 50 MB L2 between two uses of one."""
+    rb = gather_cold.row_bytes(case.D, case.arena)
+    k = gather_cold.n_sets(case.B, case.C, case.N, case.invalid, rb)
+    per_set = case.B * case.C * (1 - case.invalid)
+    assert 2 <= k < gather_cold.MAX_SETS
+    assert gather_cold.touched_bytes(k - 1, per_set, case.N, rb) \
+        >= gather_cold.COLD_FACTOR * gather_cold.L2_BYTES
+
+
+def test_cold_probe_draws_sets_and_times_nothing_on_the_cpu():
+    """The probe's id sets have the asked shape, dtype and share of -1;
+    its bound counts ids, outputs, queries and the valid rows; on the CPU
+    it times nothing."""
+    sets = gather_cold.id_sets(64, 32, 1000, 0.4, 256, seed=3,
+                               device="cpu", dtype=torch.int64)
+    assert len(sets) == gather_cold.MAX_SETS
+    for ids in sets:
+        assert ids.shape == (64, 32) and ids.dtype == torch.int64
+        assert int(ids.max()) < 1000 and int(ids.min()) >= -1
+    share = float(torch.stack([(s < 0).double().mean() for s in sets]).mean())
+    assert abs(share - 0.4) < 0.02
+    valid = sum(int((s >= 0).sum()) for s in sets) / len(sets)
+    ms, by = gather_cold.bound_ms(sets, 128, 256, 4)
+    assert by == "bytes"
+    assert ms == pytest.approx((64 * 32 * 12 + 64 * 128 * 4 + valid * 256)
+                               / gather_cold.HBM_BYTES_S * 1e3)
+    rows = gather_cold.run("cpu", cases=(
+        gather_cold.Case("tiny", 4, 8, 16, 100, "bf16", 0.4),))
+    assert rows[0]["case"] == "tiny bf16" and "ms" not in rows[0]
