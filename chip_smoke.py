@@ -7,16 +7,22 @@ Phases, one line each; any failure exits non-zero:
   1 device  the card's name and power limit (nvidia-smi)
   2 build   nvcc builds kektordb_tpu_torch/csrc into build/, one compiler
             per source at once, then one link (timed)
-  3 kernel  pass A against its plain PyTorch version on the card, B=256,
-            N=2^17, D=128, in every precision form (forms 1, 2, 5 on the
-            tensor-core kernel csrc/scan_pass_a_wgmma.cu, 0, 3, 4 on the
-            CUDA-core kernel csrc/scan_pass_a.cu; each line names its
-            kernel), and on two arenas whose last tile is ragged
-            (N=2^17+77 and 2^17+37); then the tensor-core kernel's edges:
-            B=200 (a last query slab cut short), D=100 (a depth tail),
-            D=768 (a query slab streamed with each depth chunk) and a bf16
-            arena at D=100 (200-byte rows, a stride no 16-byte copy
-            takes); then an arena with every row masked (inf, rows -1)
+  3 kernel  pass A (csrc/scan_pass_a_wgmma.cu, every form on the tensor
+            cores; each line names its product) against its plain PyTorch
+            version on the card, B=256, N=2^17, D=128, in every precision
+            form, and on two arenas whose last tile is ragged (N=2^17+77,
+            fast and f32 exact; 2^17+37, int8 and asym exact), each form
+            also at G=7 (a last member pair of one member); then the
+            kernel's edges (EDGE_CASES): B=200 (a last query slab cut
+            short), D=100 (a depth tail; for int8 100-byte rows, which no
+            16-byte copy takes), D=768 / 2048 (a query slab streamed with
+            each depth chunk), a bf16 arena at D=100 (200-byte rows),
+            int8 D=384, asym exact D=384 and 768 (its three query pieces
+            streamed); int8 x int8 must be bit-equal; then an arena with
+            every row masked (inf, rows -1). Then pass B's tie order: an
+            arena of 2^17 rows, each of 2^15 rows repeated 4 times, k=8
+            and 10, pass B (scan.pass_b) equal to a stable sort of the
+            same gmin, and _scan_kernel's rows those positions' rows
   4 main    the Engine's read path at SIFT-1M width: an hnsw index with
             serve_mode="scan", add_batch of 1,000,000 x 128 SIFT-like f32
             vectors (ids v{i}, seed 1234), 8 searches of 4096 queries,
@@ -25,12 +31,19 @@ Phases, one line each; any failure exits non-zero:
             oracle's, the pass-A launch count must have grown, and a
             filtered search must return only rows that satisfy the
             filter; one search under the profiler (device time by op)
+ 13 exact   phase 4's index with scan_exact (pass A's f32 exact form, no
+            re-rank), 8 searches of 4096 queries: recall@10 >= 0.99,
+            distances as phase 4's, QPS, form 0 launched (runs after 4)
   5 times   pass A at the main path's shape (B=4096, N=2^20, fast form)
             checked against the plain version as in phase 3, then kernel,
-            plain and torch.matmul of the product alone timed; the same for
-            the CUDA-core forms 0, 3, 4 (f32 exact, int8 x int8, exact
-            asymmetric) with their bounds; ingest seconds, Engine.search
-            QPS at B=4096
+            plain and torch.matmul of the product alone timed; pass B on
+            that output (k=32) held to a stable sort and timed against the
+            bare torch.topk it replaced (CUDA events, and its kernels'
+            device time under torch.profiler); the exact forms 0 (3xTF32) and 4
+            (three bf16 pieces) and int8 x int8 (s8) the same way, each
+            with its bound (bytes, or the products it issues at their
+            type's rate) and, for int8, torch._int_mm of the product alone;
+            ingest seconds, Engine.search QPS at B=4096
   6 gather  gather-distance (csrc/gather_dist.cu) against its plain
             version at the cases of probes.gather_cold: the graph's three
             shapes (build beam B=512 C=256, serving beam B=1024 C=128, scan
@@ -61,10 +74,10 @@ Phases, one line each; any failure exits non-zero:
             full refine) of the same rows into a second index, its beam
             recall@10 >= 0.95
   9 probes  the probe entry points, kektordb_tpu_torch.probes.matmul_ceiling
-            (the three torch.matmul ceilings and scan_vT, csrc/scan_pass_a.cu
-            over a transposed bf16 arena) and .scan_proto (scan_reduce, pass
-            A's bf16 form, at the 7 (BT, ST, G) of the script's sweep, and
-            its float64 check), at B=4096, N=2^20, D=128; then scan_vT at
+            (the three torch.matmul ceilings and scan_vT,
+            csrc/scan_pass_a_wgmma.cu over a transposed bf16 arena) and
+            .scan_proto (scan_reduce, pass A's bf16 form, at the 7 (BT,
+            ST, G) of the script's sweep, and its float64 check), at B=4096, N=2^20, D=128; then scan_vT at
             (ST, G) = (4096, 8) and scan_reduce at each of the 7 tuples held
             against their plain versions as in phase 3, both also on an
             arena of N=2^20+77 rows; kernel and plain timed
@@ -96,19 +109,30 @@ Phases, one line each; any failure exits non-zero:
             range: the chunk's kernels by name, gather-distance's share of
             its device time, and no kernel but gather-distance's inside a
             range (the wrapper launches no conversion)
+ 14 int8    bench.py's cosine collection (400,000 x 384, 4,096 centroids,
+            noise 0.35, seed 99, rows normalized) in an index of precision
+            "int8", serve_mode "scan", int8_symmetric: Engine.search at
+            B=1024, k=10, QPS, recall@10 against the exact scan over the
+            same int8 codes >= 0.99 and against the f32 cosine oracle
+            (reported), form 3 launched; form 3 bit-equal to its plain
+            version at the search's shape (B=1024, the 2^19-row arena,
+            D=384) and timed; the same index with int8_symmetric off and
+            scan_exact on (form 4), recall reported, form 4 launched, and
+            form 4 held against its plain version at that shape and timed
 Kernel times are the card's own: the timed calls queue behind a sleep
 kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
 host's issue time per call is printed beside each. Each path of phases
-7 to 11 (the build, the scan search, the beam, vacuum,
-import, the two probes, the hybrid and decayed searches) runs with every
-launch count set to 0 just before it (and the bf16 build and beam of phase
-12); its counts are read and printed just
-after, and a kernel the path runs must have launched. Then a JSON line of
-the kernels (each with its bound: the larger of its bytes over the HBM
-rate and its operations over the peak rate of their type), the card's
-line, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
-printing no result, where torch sees no CUDA device. Imports nothing of
-JAX or of the JAX package.
+7 to 14 (the build, the scan search, the beam, vacuum, import, the two
+probes, the hybrid and decayed searches, the bf16 build and beam, the
+exact and int8 searches) runs with every launch count set to 0 just
+before it; its counts (pass A's also by form) are read and printed just
+after, and a kernel (or pass-A form) the path runs must have launched.
+Then a JSON line of the kernels, pass A's exact and int8 forms each on
+a line of its own (each with its bound: the larger of its bytes over the
+HBM rate and its operations over the peak rate of their type), the
+card's line, and as the last line {"ok": true, "device": {...}}. Exits
+non-zero, printing no result, where torch sees no CUDA device. Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -134,13 +158,31 @@ KERNEL_B, KERNEL_N = 256, 1 << 17
 # 37 leaves 27 groups with no row at all
 RAGGED = (77, 37)
 HEAD_B, HEAD_N = 4096, 1 << 20
+PASS_B_N = 1 << 17   # rows of pass B's tie check (each repeated 4 times)
 RTOL = 1e-5
 DEV = "cuda"
-# phase 3's edges of the tensor-core kernel: (label, B, D, arena dtype)
-EDGE_CASES = (("B=200", 200, DIM, "f32"),
+# phase 3's edges of the tensor-core kernel: (label, B, D, kind); kinds:
+# f32_fast (form 1), bf16 (2), f32 (form 0, exact), int8 (3), asym (4,
+# exact); a last query slab cut short, a depth tail, a query slab
+# streamed with each depth chunk, rows of a stride no 16-byte copy takes
+EDGE_CASES = (("B=200", 200, DIM, "f32_fast"),
+              ("depth tail", KERNEL_B, 100, "f32_fast"),
+              ("streamed query slab", KERNEL_B, 768, "f32_fast"),
+              ("200-byte rows", KERNEL_B, 100, "bf16"),
+              ("B=200", 200, DIM, "f32"),
               ("depth tail", KERNEL_B, 100, "f32"),
               ("streamed query slab", KERNEL_B, 768, "f32"),
-              ("200-byte rows", KERNEL_B, 100, "bf16"))
+              ("B=200", 200, DIM, "int8"),
+              ("100-byte rows", KERNEL_B, 100, "int8"),
+              ("D=384", KERNEL_B, 384, "int8"),
+              ("streamed query slab", KERNEL_B, 2048, "int8"),
+              ("B=200", 200, DIM, "asym"),
+              ("100-byte rows", KERNEL_B, 100, "asym"),
+              ("D=384", KERNEL_B, 384, "asym"),
+              ("streamed query slab", KERNEL_B, 768, "asym"))
+# phase 3: the per-form cases also run at this odd G (ST = 64 G)
+FORM_NAMES = ("f32", "f32_fast", "bf16", "int8", "asym", "asym_fast")
+ODD_G = 7
 MATMUL_CHUNK = 1 << 17   # rows per torch.matmul of the product yardstick
 # phase 6: the SIFT-like arena's rows (the cases: probes.gather_cold.CASES)
 GATHER_N = 1 << 20
@@ -163,13 +205,18 @@ VOCAB, WORDS = 5000, (8, 16)
 TEXT_QUERY = "t40 t300 t1200"
 DAY = 86400.0
 REINFORCED = 64
+# phase 14: bench.py's cosine / int8 collection (bench.py:733-800)
+INT8_N, INT8_DIM, INT8_CENTROIDS, INT8_NOISE, INT8_SEED = \
+    400_000, 384, 4096, 0.35, 99
+INT8_B, INT8_BATCHES = 1024, 8      # the two query batches, 4 times
 # phase 12: rows of the bf16 default index
 BF16_N, BF16_SEED = 500_000, 1237
 FUSE_TOL = 1e-5
 RERANK_C = 32        # the scan re-rank's candidates (kf) at k = 2 * K
 # the bound: NVIDIA's H100 SXM figures (dense), at the card's power limit
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12,
+              "int8": 1979e12}
 
 
 def make_sift_like(n: int, d: int = 128, seed: int = 1234) -> np.ndarray:
@@ -242,12 +289,14 @@ def matmul_ms(torch, q, v) -> float:
     return cuda_ms(torch, run, 3).ms
 
 
-def pass_a_bound(B, N, D, g, q_bytes, v_bytes) -> tuple[float, str]:
-    """Pass A's bound: q, the arena and both biases read once, gmin and
-    garg written once; 2 B N D operations at the bf16 rate (the forms
-    timed multiply bf16-rounded operands)."""
+def form_bound(scan, form, B, N, D, g, q_bytes, v_bytes):
+    """A pass-A form's bound: q, the arena and both biases read once, gmin
+    and garg written once; the operations are the products the kernel
+    issues, 2 B N D each, at the peak rate of their type
+    (`scan.FORM_PRODUCTS`)."""
+    kind, passes = scan.FORM_PRODUCTS[form]
     return bound(B * D * q_bytes + N * D * v_bytes + N * 8
-                 + B * (-(-N // g)) * 8, 2.0 * B * N * D, "bf16")
+                 + B * (-(-N // g)) * 8, passes * 2.0 * B * N * D, kind)
 
 
 def form_cases(torch, quant, dist):
@@ -286,20 +335,34 @@ def form_cases(torch, quant, dist):
         ("asym", qn, *rows(n, codes, cos8), False, True),
         ("asym_fast", qn, *rows(n, codes, cos8), False, False),
         (f"f32_fast N={r_long}", q32, *rows(r_long, v32, l2), True, False),
+        (f"f32 N={r_long}", q32, *rows(r_long, v32, l2), False, False),
         (f"int8 N={r_short}", qcodes, *rows(r_short, codes, cos8),
          False, False),
+        (f"asym N={r_short}", qn, *rows(r_short, codes, cos8), False, True),
     ]
-    for label, b, d, arena in EDGE_CASES:
-        X = make_sift_like(KERNEL_N + b, d, seed=9)
-        v = torch.from_numpy(X[:KERNEL_N]).to(DEV)
-        q = torch.from_numpy(X[KERNEL_N:]).to(DEV)
-        if arena == "bf16":
-            v, q = v.to(torch.bfloat16), q.to(torch.bfloat16)
-        bA, bB = scan.serving_bias(v, (v.float() ** 2).sum(-1),
-                                   live[:KERNEL_N], dist.L2)
-        fast = arena == "f32"
-        cases.append((f"{arena}{'_fast' if fast else ''} {label}", q, v,
-                      bA, bB, fast, False))
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    for label, b, d, kind in EDGE_CASES:
+        if kind in ("int8", "asym"):       # unit Gaussian rows, int8 codes
+            v = dist.normalize(torch.randn((KERNEL_N, d), generator=gen,
+                                           device=DEV))
+            q = dist.normalize(torch.randn((b, d), generator=gen,
+                                           device=DEV))
+            st8 = quant.train(v)
+            v, vnorms = quant.quantize(st8, v)
+            if kind == "int8":
+                q = quant.quantize(st8, q)[0]
+            bA, bB = scan.serving_bias(v, vnorms, live[:KERNEL_N],
+                                       dist.COSINE)
+        else:
+            X = make_sift_like(KERNEL_N + b, d, seed=9)
+            v = torch.from_numpy(X[:KERNEL_N]).to(DEV)
+            q = torch.from_numpy(X[KERNEL_N:]).to(DEV)
+            if kind == "bf16":
+                v, q = v.to(torch.bfloat16), q.to(torch.bfloat16)
+            bA, bB = scan.serving_bias(v, (v.float() ** 2).sum(-1),
+                                       live[:KERNEL_N], dist.L2)
+        cases.append((f"{kind} {label}", q, v, bA, bB, kind == "f32_fast",
+                      kind == "asym"))
     return cases
 
 
@@ -314,6 +377,12 @@ def exact_scores(torch, scan, q, v, biasA, biasB, form, b, rows):
         vv = v[rows].to(torch.bfloat16).double()
     dots = (qq * vv).sum(-1)
     return biasA[rows].double() - dots * biasB[rows].double()
+
+
+def product(scan, form) -> str:
+    """The tensor-core product a pass-A form issues, for the lines."""
+    kind, passes = scan.FORM_PRODUCTS[form]
+    return f"{passes}x{kind}" if passes > 1 else kind
 
 
 def compare(torch, name, q, v, bA, bB, st, g, form, kern, plain) -> float:
@@ -331,7 +400,7 @@ def compare(torch, name, q, v, bA, bB, st, g, form, kern, plain) -> float:
     (gk, ak), (gp, ap) = kern, plain
     W = st // g
     fin = torch.isfinite(bA)
-    scale = float(bA[fin].abs().max()) + float(bB.abs().max()) * float(
+    scale = float(bA[fin].abs().max()) + float(bB[fin].abs().max()) * float(
         q.float().norm(dim=1).max()) * float(v.float().norm(dim=1).max())
     tol = RTOL * scale
     inf_k, inf_p = torch.isinf(gk), torch.isinf(gp)
@@ -344,6 +413,10 @@ def compare(torch, name, q, v, bA, bB, st, g, form, kern, plain) -> float:
         raise AssertionError(f"{name}: gmin error {err} > {tol}")
     bad = (ak != ap) & ~inf_k
     nbad = int(bad.sum())
+    if form == scan.FORM_INT8 and (err or nbad):
+        # the s32 sum is exact: int8 x int8 must be bit-equal
+        raise AssertionError(f"{name}: int8 x int8 not bit-equal (max|gmin "
+                             f"err| {err}, {nbad} argmins differ)")
     if nbad:
         b, p = bad.nonzero(as_tuple=True)
         base = (p // W) * st + p % W
@@ -355,8 +428,10 @@ def compare(torch, name, q, v, bA, bB, st, g, form, kern, plain) -> float:
         if gap > 2 * tol:
             raise AssertionError(
                 f"{name}: {nbad} argmins differ by {gap} > {2 * tol}")
+    exact = ", bit-equal" if form == scan.FORM_INT8 else ""
     print(f"phase kernel {name}: B={q.shape[0]} N={v.shape[0]} ST={st} "
-          f"G={g} form {form}, max|gmin err| {err:.6g} (tol {tol:.6g}), "
+          f"G={g} form {form} ({product(scan, form)}), max|gmin err| "
+          f"{err:.6g} (tol {tol:.6g}{exact}), "
           f"+inf groups {int(inf_k.sum())}, argmin ties differing {nbad}",
           flush=True)
     return err
@@ -369,14 +444,20 @@ def check_kernels(torch) -> float:
     from kektordb_tpu_torch.ops import scan
     worst = 0.0
     for name, q, v, bA, bB, fast, exact in form_cases(torch, quant, dist):
-        st, g = scan.kernel_tiles(v.shape[0])
-        form = scan.pass_a_form(q.dtype, v.dtype, fast=fast, exact=exact)
-        kern = scan.pass_a(q, v, bA, bB, st=st, g=g, fast=fast, exact=exact)
-        torch.cuda.synchronize()
-        plain = scan.pass_a_plain(q, v, bA, bB, st=st, g=g, form=form)
-        worst = max(worst, compare(
-            torch, f"{name} D={q.shape[1]} [{scan.pass_a_kernel(form)}]", q,
-            v, bA, bB, st, g, form, kern, plain))
+        # the form's cases at the GPU's tiles, and the first six (one per
+        # form) also at an odd G, whose last member pair has one member
+        tiles = [scan.kernel_tiles(v.shape[0])]
+        if name in FORM_NAMES:
+            tiles.append((ODD_G * scan.KERNEL_GROUPS, ODD_G))
+        for st, g in tiles:
+            form = scan.pass_a_form(q.dtype, v.dtype, fast=fast, exact=exact)
+            kern = scan.pass_a(q, v, bA, bB, st=st, g=g, fast=fast,
+                               exact=exact)
+            torch.cuda.synchronize()
+            plain = scan.pass_a_plain(q, v, bA, bB, st=st, g=g, form=form)
+            worst = max(worst, compare(
+                torch, f"{name} D={q.shape[1]}",
+                q, v, bA, bB, st, g, form, kern, plain))
     # every row masked: inf scores, rows -1
     q = torch.ones((KERNEL_B, DIM), device=DEV)
     v = torch.zeros((KERNEL_N, DIM), device=DEV)
@@ -387,6 +468,49 @@ def check_kernels(torch) -> float:
         raise AssertionError("all-masked arena: expected inf and -1")
     print("phase kernel masked: all scores inf, all rows -1", flush=True)
     return worst
+
+
+def check_pass_b(torch, card) -> None:
+    """Pass B's tie order on the card: an arena of PASS_B_N rows, each of
+    PASS_B_N / 4 SIFT-like rows repeated 4 times, so its four copies fall in
+    four neighbouring groups with the same members and gmin holds runs of
+    four equal values (distinct rows at equal distance). For k = 8 (a run
+    ends at the last place) and 10 (the last place falls inside a run), on
+    the kernel route (pass A's f32 exact form): `scan.pass_b` against a
+    stable sort of the same gmin (values and positions equal: the
+    reference's `lax.top_k` order), and `_scan_kernel`'s rows against
+    those positions' rows."""
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import scan
+    X = make_sift_like(PASS_B_N // 4 + KERNEL_B, DIM, seed=19)
+    v = torch.from_numpy(X[:PASS_B_N // 4]).to(DEV).repeat_interleave(4, 0)
+    q = torch.from_numpy(X[PASS_B_N // 4:]).to(DEV)
+    bA, bB = scan.serving_bias(v, (v ** 2).sum(-1), torch.ones(
+        PASS_B_N, dtype=torch.bool, device=DEV), dist.L2)
+    st, g = scan.kernel_tiles(PASS_B_N)
+    W = st // g
+    gmin, garg = scan.pass_a(q, v, bA, bB, st=st, g=g)
+    ref_d, ref_p = torch.sort(gmin, dim=1, stable=True)
+    for k in (8, 10):
+        bd, bp = scan.pass_b(gmin, k)
+        tied = int((ref_d[:, k] == ref_d[:, k - 1]).sum())
+        if not (torch.equal(bd, ref_d[:, :k])
+                and torch.equal(bp, ref_p[:, :k])):
+            raise AssertionError(f"pass B k={k}: not a stable sort's order")
+        m = torch.gather(garg, 1, ref_p[:, :k]).long()
+        want = (ref_p[:, :k] // W) * st + ref_p[:, :k] % W + m * W
+        _, rows = scan._scan_kernel(q, v, bA, bB, k, exact=True)
+        if not torch.equal(rows.long(), want):
+            raise AssertionError(f"_scan_kernel k={k}: rows differ from "
+                                 "the stable order's")
+        if k == 10 and not tied:
+            raise AssertionError("no run of ties across the last place: "
+                                 "the check does not bite")
+        print(f"phase pass B: {PASS_B_N} rows (each repeated 4x), "
+              f"B={KERNEL_B}, k={k}: {tied} queries with a run of ties "
+              f"across the last place; values and positions equal to a "
+              f"stable sort of gmin, _scan_kernel's rows theirs [{card}]",
+              flush=True)
 
 
 def check_distances(hits, got, gt_d, gt, queries, base) -> float:
@@ -492,16 +616,57 @@ def main_path(torch, card: str) -> dict:
           f"unprofiled {batch_ms:.3f} ms batch, idle {1 - dev / batch_ms:.3f}"
           f"; device time by op: {top} [{card}]", flush=True)
     return {"ingest_s": ingest_s, "qps": N_BATCHES * BATCH / search_s,
-            "recall": recall, "launches": launches}
+            "recall": recall, "launches": launches, "eng": eng,
+            "base": base, "queries": queries, "gt": gt, "gt_d": gt_d}
+
+
+def exact_phase(torch, main: dict, card: str) -> dict:
+    """Phase 13: phase 4's SIFT-1M scan index with scan_exact (pass A in
+    the f32 exact form, 3xTF32 on the tensor cores, no re-rank), N_BATCHES
+    searches of BATCH queries: recall@K against the exact oracle >=
+    RECALL_MIN, the hits' distances against the oracle's
+    (`check_distances`), QPS, and form 0 launched."""
+    from kektordb_tpu_torch.ops import scan
+    eng, queries = main["eng"], main["queries"]
+    eng.configure_index("sift", {"scan_exact": True})
+    eng.search("sift", queries[:BATCH], k=K)             # warm
+    results, sec, counts = counted(
+        torch, "Engine.search scan_exact",
+        lambda: [eng.search("sift", queries[i * BATCH:(i + 1) * BATCH],
+                            k=K) for i in range(N_BATCHES)],
+        ("scan_pass_a",), (scan.FORM_F32,))
+    for res in results:
+        if len(res) != BATCH or any(len(h) != K for h in res):
+            raise AssertionError("exact search returned a wrong shape")
+    got = np.array([[int(x["id"][1:]) for x in h]
+                    for h in results[0][:RECALL_QUERIES]])
+    recall = recall_at(got, main["gt"])
+    d_err = check_distances(results[0][:RECALL_QUERIES], got, main["gt_d"],
+                            main["gt"], queries[:RECALL_QUERIES],
+                            main["base"])
+    qps = N_BATCHES * BATCH / sec
+    print(f"phase exact: Engine.search scan_exact B={BATCH} k={K}, "
+          f"{N_BATCHES} searches: {qps:.1f} QPS; recall@{K} {recall:.4f} on "
+          f"{RECALL_QUERIES} queries (exact oracle), min {RECALL_MIN}; "
+          f"distances of the shared hits max |err| {d_err:.6g} against the "
+          f"oracle's, ascending; pass A form 0 launches "
+          f"{counts['scan_pass_a forms'][scan.FORM_F32]} [{card}]",
+          flush=True)
+    if recall < RECALL_MIN:
+        raise AssertionError(f"exact recall {recall} < {RECALL_MIN}")
+    eng.close()
+    return {"qps": qps, "recall": recall,
+            "launches": counts["scan_pass_a forms"][scan.FORM_F32]}
 
 
 def time_pass_a(torch, card: str) -> dict:
     """Phase 5: pass A (fast form, the serving read's candidate pass) at
     the main path's shape, B=4096, N=2^20 (ST=1024, G=16): one kernel
     call held against one plain call as in phase 3, then both timed in
-    turns on one card, and the product alone (`matmul_ms`). Returns
-    {"ms", "issue_ms", "plain_ms", "matmul_ms", "max_abs_err", "bound_ms",
-    "bound_by"}."""
+    turns on one card, and the product alone (`matmul_ms`); pass B on that
+    output (`time_pass_b`); then the exact forms and int8 x int8
+    (`time_forms`). Returns {"ms", "issue_ms", "plain_ms", "matmul_ms",
+    "max_abs_err", "bound_ms", "bound_by", "pass_b", "forms"}."""
     from kektordb_tpu_torch.ops import distance as dist
     from kektordb_tpu_torch.ops import scan
     X = make_sift_like(HEAD_N + HEAD_B, DIM, seed=11)
@@ -517,7 +682,9 @@ def time_pass_a(torch, card: str) -> dict:
     plain = scan.pass_a_plain(q, v, bA, bB, st=st, g=g, form=form)
     err = compare(torch, "f32_fast, main path's shape", q, v, bA, bB, st, g,
                   form, kern, plain)
-    del kern, plain
+    del plain
+    pass_b = time_pass_b(torch, card, kern[0])
+    del kern
 
     def kernel():
         scan.pass_a(q, v, bA, bB, st=st, g=g, fast=True)
@@ -531,26 +698,132 @@ def time_pass_a(torch, card: str) -> dict:
         ps.append(cuda_ms(torch, plain, 3).ms)
     kms, pms = sum(t.ms for t in ks) / 2, sum(ps) / 2
     mms = matmul_ms(torch, q, v)
-    bms, by = pass_a_bound(HEAD_B, HEAD_N, DIM, g, 4, 4)
+    bms, by = form_bound(scan, form, HEAD_B, HEAD_N, DIM, g, 4, 4)
     print(f"phase times: pass A B={HEAD_B} N={HEAD_N} D={DIM} fast form "
-          f"[{scan.pass_a_kernel(form)}]: kernel "
+          f"({product(scan, form)}): kernel "
           + ", ".join(f"{t.ms:.3f}" for t in ks) + f" ms ({issue_note(ks[0])})"
           f", plain {pms:.3f} ms, torch.matmul of the product alone "
           f"{mms:.3f} ms, bound {bms:.3f} ms ({by}) [{card}]", flush=True)
-    forms = time_cuda_core_forms(torch, card, q, v, bA, bB)
+    forms = time_forms(torch, card, q, v, bA, bB)
     return {"ms": kms, "issue_ms": ks[0].issue_ms, "plain_ms": pms,
-            "matmul_ms": mms, "max_abs_err": max(err, forms), "bound_ms": bms,
-            "bound_by": by}
+            "matmul_ms": mms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": max([err] + [f["max_abs_err"]
+                                        for f in forms.values()]),
+            "pass_b": pass_b, "forms": forms}
 
 
-def time_cuda_core_forms(torch, card, q32, v32, bA, bB) -> float:
-    """Phase 5's CUDA-core forms (csrc/scan_pass_a.cu) at the serving shape:
-    f32 exact (form 0) on the f32 arena, int8 x int8 (form 3) and the exact
-    asymmetric form (4) on its int8 codes (cosine), each held against its
-    plain version as in phase 3, then kernel and plain timed in turns. The
-    bound takes 2 B N D operations at the rate of the product's type (f32
-    for forms 0 and 4, int8 for form 3) against the bytes read once.
-    Returns the largest max |gmin err|."""
+def time_pass_b(torch, card, gmin) -> dict:
+    """Pass B at the serving read's shape (gmin [4096, 65536], k = 32, the
+    re-rank's candidates): `scan.pass_b` (topk of k + 1, the tie repair,
+    the (value, position) order) held against a stable sort of the same
+    gmin (equal values and positions), then timed in turns against the
+    bare `torch.topk` of k it replaced, whose tie order is undefined:
+    between CUDA events, and as the device time of their kernels under
+    torch.profiler (pass_b waits for the card once a call, so its event
+    time holds the host's turnaround). probes/pass_b_ties.py times both
+    on minima where every row ties."""
+    from kektordb_tpu_torch.ops import scan
+    from kektordb_tpu_torch.probes.pass_b_ties import profiled_ms
+    k = RERANK_C
+    bd, bp = scan.pass_b(gmin, k)
+    ref_d, ref_p = torch.sort(gmin, dim=1, stable=True)
+    if not (torch.equal(bd, ref_d[:, :k]) and torch.equal(bp, ref_p[:, :k])):
+        raise AssertionError("pass B at the serving shape differs from a "
+                             "stable sort")
+    del ref_d, ref_p
+
+    def old():
+        torch.topk(gmin, k, dim=1, largest=False, sorted=True)
+
+    def new():
+        scan.pass_b(gmin, k)
+    olds, news = [], []
+    for fn, out in ((old, olds), (new, news), (new, news), (old, olds)):
+        out.append(cuda_ms(torch, fn, 5))
+    dev_new, dev_old = profiled_ms(new, 5), profiled_ms(old, 5)
+    print(f"phase times: pass B over gmin {list(gmin.shape)}, k={k}: "
+          f"scan.pass_b (reference tie order) {dev_new:.4f} ms of device "
+          "time (profiler), events "
+          + ", ".join(f"{t.ms:.3f}" for t in news)
+          + f" ms ({issue_note(news[0])}), against torch.topk alone (the "
+          f"pass B it replaced, ties undefined) {dev_old:.4f} ms of device "
+          "time, events "
+          + ", ".join(f"{t.ms:.3f}" for t in olds)
+          + f" ms ({issue_note(olds[0])}); equal to a stable sort [{card}]",
+          flush=True)
+    return {"ms": sum(t.ms for t in news) / 2, "device_ms": dev_new,
+            "topk_ms": sum(t.ms for t in olds) / 2, "topk_device_ms": dev_old}
+
+
+def int_mm_ms(torch, q, v):
+    """Device ms of the int8 product alone, a yardstick and not the
+    function: torch._int_mm of q [B, D] and the arena's rows, transposed,
+    in chunks of MATMUL_CHUNK rows into one int32 output per chunk size
+    (the serving shape is one _int_mm takes: B > 16, D a multiple of 8)."""
+    n = v.shape[0]
+    outs = {m: torch.empty((q.shape[0], m), dtype=torch.int32, device=DEV)
+            for m in {min(MATMUL_CHUNK, n - i)
+                      for i in range(0, n, MATMUL_CHUNK)}}
+
+    def run():
+        for i in range(0, n, MATMUL_CHUNK):
+            blk = v[i:i + MATMUL_CHUNK]
+            torch._int_mm(q, blk.T, out=outs[blk.shape[0]])
+    return cuda_ms(torch, run, 3).ms
+
+
+def hold_form(torch, card, label, q, v, biasA, biasB, st, g,
+              exact) -> dict:
+    """One pass-A form at one shape: a kernel call held against the plain
+    version on the same inputs as in phase 3 (`compare`; int8 x int8
+    bit-equal), then kernel and plain timed in turns, beside the form's
+    bound (`form_bound`: the larger of the bytes and the issued products
+    at their type's rate); for int8 x int8 also torch._int_mm of the
+    product alone. Returns {"form", "ms", "issue_ms", "plain_ms",
+    "bound_ms", "bound_by", "max_abs_err", "matmul_ms", "shape"}."""
+    from kektordb_tpu_torch.ops import scan
+    form = scan.pass_a_form(q.dtype, v.dtype, fast=False, exact=exact)
+    B, N, D = q.shape[0], v.shape[0], q.shape[1]
+
+    def kernel():
+        return scan.pass_a(q, v, biasA, biasB, st=st, g=g, exact=exact)
+
+    def plain():
+        return scan.pass_a_plain(q, v, biasA, biasB, st=st, g=g, form=form)
+    kern = kernel()
+    torch.cuda.synchronize()
+    err = compare(torch, label, q, v, biasA, biasB, st, g, form, kern,
+                  plain())
+    del kern
+    ks, ps = [], []
+    for _ in range(2):
+        ks.append(cuda_ms(torch, kernel, 3))
+        ps.append(cuda_ms(torch, plain, 2).ms)
+    bms, by = form_bound(scan, form, B, N, D, g, q.element_size(),
+                         v.element_size())
+    kms = sum(t.ms for t in ks) / 2
+    mm, yard = None, ""
+    if form == scan.FORM_INT8:
+        mm = int_mm_ms(torch, q, v)
+        yard = f", torch._int_mm of the product alone {mm:.3f} ms"
+    print(f"phase times: pass A {label} B={B} N={N} D={D} (form {form}, "
+          f"{product(scan, form)}): kernel "
+          + ", ".join(f"{t.ms:.3f}" for t in ks)
+          + f" ms ({issue_note(ks[0])}), plain {sum(ps) / 2:.3f} ms"
+          f"{yard}, bound {bms:.3f} ms ({by}, "
+          f"{scan.FORM_PRODUCTS[form][0]}), share {bms / kms:.3f} "
+          f"[{card}]", flush=True)
+    return {"form": form, "ms": kms, "issue_ms": ks[0].issue_ms,
+            "plain_ms": sum(ps) / 2, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err, "matmul_ms": mm, "shape": [B, N, D]}
+
+
+def time_forms(torch, card, q32, v32, bA, bB) -> dict:
+    """Phase 5's exact forms and int8 x int8 at the serving shape, each
+    held and timed by `hold_form`: f32 exact (form 0, 3xTF32) on the f32
+    arena, int8 x int8 (form 3, s8) and the exact asymmetric form (4,
+    three bf16 pieces) on its int8 codes (cosine). Returns {name:
+    `hold_form`'s dict}."""
     from kektordb_tpu_torch.ops import distance as dist
     from kektordb_tpu_torch.ops import quantize as quant
     from kektordb_tpu_torch.ops import scan
@@ -561,41 +834,12 @@ def time_cuda_core_forms(torch, card, q32, v32, bA, bB) -> float:
     live = torch.ones(HEAD_N, dtype=torch.bool, device=DEV)
     cA, cB = scan.serving_bias(codes, cnorms, live, dist.COSINE)
     st, g = scan.kernel_tiles(HEAD_N)
-    worst = 0.0
-    for name, q, v, biasA, biasB, exact, kind in (
-            ("f32 exact", q32, v32, bA, bB, False, "f32"),
-            ("int8", qcodes, codes, cA, cB, False, "int8"),
-            ("asym exact", qn, codes, cA, cB, True, "f32")):
-        form = scan.pass_a_form(q.dtype, v.dtype, fast=False, exact=exact)
-
-        def kernel():
-            return scan.pass_a(q, v, biasA, biasB, st=st, g=g, exact=exact)
-
-        def plain():
-            return scan.pass_a_plain(q, v, biasA, biasB, st=st, g=g,
-                                     form=form)
-        kern = kernel()
-        torch.cuda.synchronize()
-        worst = max(worst, compare(
-            torch, f"{name}, serving shape [{scan.pass_a_kernel(form)}]",
-            q, v, biasA, biasB, st, g, form, kern, plain()))
-        del kern
-        ks, ps = [], []
-        for _ in range(2):
-            ks.append(cuda_ms(torch, kernel, 3))
-            ps.append(cuda_ms(torch, plain, 2).ms)
-        bms, by = bound(HEAD_B * DIM * q.element_size()
-                        + HEAD_N * DIM * v.element_size() + HEAD_N * 8
-                        + HEAD_B * (-(-HEAD_N // g)) * 8,
-                        2.0 * HEAD_B * HEAD_N * DIM, kind)
-        kms = sum(t.ms for t in ks) / 2
-        print(f"phase times: pass A B={HEAD_B} N={HEAD_N} D={DIM} {name} "
-              f"(form {form}) [{scan.pass_a_kernel(form)}]: kernel "
-              + ", ".join(f"{t.ms:.3f}" for t in ks)
-              + f" ms ({issue_note(ks[0])}), plain {sum(ps) / 2:.3f} ms, "
-              f"bound {bms:.3f} ms ({by}, {kind}), share {bms / kms:.3f} "
-              f"[{card}]", flush=True)
-    return worst
+    return {name: hold_form(torch, card, f"{name}, serving shape", q, v,
+                            biasA, biasB, st, g, exact)
+            for name, q, v, biasA, biasB, exact in (
+                ("f32 exact", q32, v32, bA, bB, False),
+                ("int8", qcodes, codes, cA, cB, False),
+                ("asym exact", qn, codes, cA, cB, True))}
 
 
 def hold_gather(torch, label, v, ids, q, metric, **kw):
@@ -722,10 +966,13 @@ def check_gather(torch, card) -> dict:
             "bound_by": head["bound_by"], "by_case": by_case}
 
 
-def counted(torch, path: str, fn, need: tuple[str, ...]):
+def counted(torch, path: str, fn, need: tuple[str, ...],
+            need_forms: tuple[int, ...] = ()):
     """Runs one path with every launch count set to 0 just before it and
-    reads the counts just after; every kernel in `need` must have launched.
-    Returns (fn's result, seconds, counts)."""
+    reads the counts just after; every kernel in `need`, and pass A in
+    every form of `need_forms`, must have launched. Returns (fn's result,
+    seconds, counts); counts["scan_pass_a forms"] lists pass A's launches
+    by form."""
     from kektordb_tpu_torch.ops import distance as dist
     from kektordb_tpu_torch.ops import scan, scan_probe
     wrappers = {"gather_dist": dist.gathered, "scan_pass_a": scan.pass_a,
@@ -733,14 +980,21 @@ def counted(torch, path: str, fn, need: tuple[str, ...]):
                 "scan_reduce": scan_probe.scan_reduce}
     for w in wrappers.values():
         w.launches = 0
+    scan.pass_a.form_launches = [0] * len(scan.FORM_DTYPES)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
+    forms = list(scan.pass_a.form_launches)
     print(f"phase launches, {path}: "
-          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
-    missing = [k for k in need if counts[k] < 1]
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + " (scan_pass_a by form: "
+          + ", ".join(f"{f}: {n}" for f, n in enumerate(forms) if n)
+          + ")", flush=True)
+    counts["scan_pass_a forms"] = forms
+    missing = [k for k in need if counts[k] < 1] \
+        + [f"scan_pass_a form {f}" for f in need_forms if forms[f] < 1]
     if missing:
         raise AssertionError(f"{path}: {missing} never launched")
     return out, sec, counts
@@ -1220,13 +1474,13 @@ def held_on_path(torch, idx, Q, label: str, card: str) -> dict:
     kern = scan.pass_a(q, v, bA, bB, st=st, g=g, fast=True)
     torch.cuda.synchronize()
     plain = scan.pass_a_plain(q, v, bA, bB, st=st, g=g, form=form)
-    err_a = compare(torch, f"{label} search's pass A "
-                    f"[{scan.pass_a_kernel(form)}]", q, v, bA, bB, st, g,
-                    form, kern, plain)
+    err_a = compare(torch, f"{label} search's pass A", q, v, bA, bB, st,
+                    g, form, kern, plain)
     del kern, plain
     t = cuda_ms(torch, lambda: scan.pass_a(q, v, bA, bB, st=st, g=g,
                                            fast=True), 5)
-    bms, by = pass_a_bound(q.shape[0], v.shape[0], v.shape[1], g, 4, 4)
+    bms, by = form_bound(scan, form, q.shape[0], v.shape[0], v.shape[1], g,
+                         4, 4)
     print(f"phase {label}: pass A at the search's shape (B={q.shape[0]}, "
           f"N={v.shape[0]}, ST={st}, G={g}): kernel {t.ms:.3f} ms "
           f"({issue_note(t)}), torch.matmul of the product alone "
@@ -1464,6 +1718,123 @@ def graph_bf16_phase(torch, card: str) -> dict:
             "build_launches": build_counts["gather_dist"]}
 
 
+def cosine_corpus(n: int, nq: int) -> tuple[np.ndarray, np.ndarray]:
+    """bench.py's cosine collection (bench.py:733-800): INT8_CENTROIDS
+    Gaussian centroids, each row a centroid plus INT8_NOISE Gaussian noise,
+    every row normalized, seed INT8_SEED; the queries are the draw's last
+    nq rows. Returns (base [n, INT8_DIM], queries [nq, INT8_DIM])."""
+    rng = np.random.default_rng(INT8_SEED)
+    raw = np.empty((n + nq, INT8_DIM), np.float32)
+    cents = rng.normal(size=(INT8_CENTROIDS, INT8_DIM)).astype(np.float32)
+    bs = 131_072
+    for i in range(0, raw.shape[0], bs):
+        m = min(bs, raw.shape[0] - i)
+        which = rng.integers(0, INT8_CENTROIDS, size=m)
+        raw[i:i + m] = cents[which] + INT8_NOISE * rng.normal(
+            size=(m, INT8_DIM)).astype(np.float32)
+    raw /= np.linalg.norm(raw, axis=1, keepdims=True) + 1e-12
+    return raw[:n], raw[n:]
+
+
+def int8_phase(torch, card: str) -> dict:
+    """Phase 14: the reference bench's cosine / int8 collection at its own
+    size, INT8_N x INT8_DIM (the MiniLM embedder's width: a RAG
+    collection), in an index of precision "int8", serve_mode "scan",
+    int8_symmetric (queries quantized too: the reference's max-QPS
+    operating point), so every search is pass A's int8 x int8 form (s8 on
+    the tensor cores). Engine.search at INT8_B, k=K: QPS; recall@K against
+    the exact scan over the same int8 codes and int8 queries
+    (`_scan_blocked` on the card) >= RECALL_MIN; recall@K against the f32
+    cosine oracle, reported (the int8 format's own ceiling); form 3
+    launched. Then form 3 held bit-equal against its plain version at this
+    search's shape (the index's own 2^19-row arena) and timed beside its
+    bound (`hold_form`); last, the same index with int8_symmetric off and
+    scan_exact on (float queries, pass A's exact asymmetric form 4),
+    recall reported, form 4 launched, and form 4 held and timed at that
+    search's shape the same way (D=384: its query pieces streamed).
+    Returns the search's numbers and {"int8", "asym exact"}: each form's
+    `hold_form` dict at its search's shape."""
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import scan
+    base, queries = cosine_corpus(INT8_N, 2 * INT8_B)
+    eng = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    eng.create_index("cos8", metric=dist.COSINE, precision="int8",
+                     serve_mode="scan")
+    eng.configure_index("cos8", {"int8_symmetric": True})
+    t0 = time.perf_counter()
+    eng.add_batch("cos8", [f"c{i}" for i in range(INT8_N)], base)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    idx = eng.indexes["cos8"].index
+    if idx.state.vectors.dtype != torch.int8 or idx.ids.get("c7") != 7:
+        raise AssertionError("the int8 index did not store int8 rows in "
+                             "insertion order")
+    Q = queries[:INT8_B]
+    eng.search("cos8", Q, k=K)                             # warm
+
+    def searches():
+        return [eng.search("cos8", queries[j * INT8_B:(j + 1) * INT8_B],
+                           k=K) for j in (i % 2 for i in range(INT8_BATCHES))]
+    results, sec, counts = counted(torch, "int8_symmetric Engine.search",
+                                   searches, ("scan_pass_a",),
+                                   (scan.FORM_INT8,))
+    qps = INT8_BATCHES * INT8_B / sec
+    for res in results:
+        if len(res) != INT8_B or any(len(h) != K for h in res):
+            raise AssertionError("int8 search returned a wrong shape")
+    got = np.array([[int(x["id"][1:]) for x in h] for h in results[0]])
+    s = idx.state
+    q8, qn8 = idx._encode_query(idx._queries(Q))
+    bA, bB = scan.serving_bias(s.vectors, s.norms,
+                               (s.levels >= 0) & ~s.deleted, dist.COSINE)
+    exact8 = scan._scan_blocked(q8, s.vectors, bA, bB, K)[1].cpu().numpy()
+    gt32 = dist.brute_force_topk(torch.from_numpy(Q).to(DEV),
+                                 torch.from_numpy(base).to(DEV), K,
+                                 dist.COSINE)[1].cpu().numpy()
+    rec8, rec32 = recall_at(got, exact8), recall_at(got, gt32)
+    print(f"phase int8: {INT8_N} x {INT8_DIM} cosine rows (bench.py's "
+          f"collection, seed {INT8_SEED}), precision int8, int8_symmetric; "
+          f"ingest {ingest_s:.3f} s; Engine.search B={INT8_B} k={K}: "
+          f"{qps:.1f} QPS over {INT8_BATCHES} searches; recall@{K} "
+          f"{rec8:.4f} against the exact scan over the same int8 codes (min "
+          f"{RECALL_MIN}), {rec32:.4f} against the f32 cosine oracle "
+          f"(reported); pass A form 3 launches "
+          f"{counts['scan_pass_a forms'][scan.FORM_INT8]} [{card}]",
+          flush=True)
+    if rec8 < RECALL_MIN:
+        raise AssertionError(f"int8 recall {rec8} < {RECALL_MIN} against "
+                             "the exact int8 scan")
+
+    st, g = scan.kernel_tiles(s.vectors.shape[0])
+    sym = hold_form(torch, card, "int8 search's shape", q8, s.vectors, bA,
+                    bB, st, g, False)
+
+    eng.configure_index("cos8", {"int8_symmetric": False,
+                                 "scan_exact": True})
+    res, sec, acounts = counted(torch, "asymmetric exact Engine.search",
+                                lambda: eng.search("cos8", Q, k=K),
+                                ("scan_pass_a",), (scan.FORM_ASYM,))
+    arec = recall_at(np.array([[int(x["id"][1:]) for x in h] for h in res]),
+                     gt32)
+    print(f"phase int8: the same index, int8_symmetric off, scan_exact on "
+          f"(float queries x codes, pass A form 4): Engine.search B={INT8_B}"
+          f" in {sec:.3f} s, recall@{K} {arec:.4f} against the f32 cosine "
+          f"oracle (reported); form 4 launches "
+          f"{acounts['scan_pass_a forms'][scan.FORM_ASYM]} [{card}]",
+          flush=True)
+    qf, _ = idx._encode_query(idx._queries(Q))
+    if qf.dtype != torch.float32:
+        raise AssertionError("the asymmetric search's queries are not f32")
+    asym = hold_form(torch, card, "asym exact search's shape", qf,
+                     s.vectors, bA, bB, st, g, True)
+    eng.close()
+    return {"qps": qps, "recall": rec8, "recall_f32": rec32,
+            "launches": counts["scan_pass_a forms"][scan.FORM_INT8],
+            "asym_launches": acounts["scan_pass_a forms"][scan.FORM_ASYM],
+            "int8": sym, "asym exact": asym}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1485,7 +1856,10 @@ def main() -> int:
             print(f"phase build: {ln.strip()}", flush=True)
 
     max_err = check_kernels(torch)
+    check_pass_b(torch, card)
     main = main_path(torch, card)
+    exact = exact_phase(torch, main, card)
+    del main["eng"]
     head = time_pass_a(torch, card)
     max_err = max(max_err, head["max_abs_err"])
     print(f"phase times: ingest {main['ingest_s']:.3f} s, Engine.search "
@@ -1498,6 +1872,7 @@ def main() -> int:
     eng, Q, path_errs = hybrid_phase(torch, card)
     decay_phase(torch, eng, Q, card)
     bf16 = graph_bf16_phase(torch, card)
+    int8 = int8_phase(torch, card)
 
     leaked = [m for m in sys.modules
               if m in ("jax", "jaxlib", "kektordb_tpu")
@@ -1519,8 +1894,36 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "issue_ms": head["issue_ms"],
-        "matmul_ms": head["matmul_ms"],
-        "other_forms_source": "kektordb_tpu_torch/csrc/scan_pass_a.cu"}, {
+        "matmul_ms": head["matmul_ms"], "form": "f32 fast (1, bf16)",
+        "pass_b_device_ms": head["pass_b"]["device_ms"],
+        "pass_b_topk_alone_device_ms": head["pass_b"]["topk_device_ms"]}]
+    # pass A's exact forms and int8 x int8: the same kernel, each form's
+    # own product, timed at the shape of the user path that runs it
+    # (phase 13's is phase 5's serving shape; phase 14's B=1024 over its
+    # 2^19-row arena at D=384), launches on that path; forms 3 and 4 also
+    # carry their serving-shape time (phase 5)
+    for name, launches, path, f in (
+            ("f32 exact", exact["launches"], "phase 13, scan_exact",
+             head["forms"]["f32 exact"]),
+            ("int8", int8["launches"], "phase 14, int8_symmetric",
+             int8["int8"]),
+            ("asym exact", int8["asym_launches"],
+             "phase 14, int8 with scan_exact", int8["asym exact"])):
+        serving = head["forms"][name]
+        kernels.append({
+            "name": f"scan_pass_a form {f['form']} ({name})",
+            "route": "cuda",
+            "source": "kektordb_tpu_torch/csrc/scan_pass_a_wgmma.cu",
+            "replaces": "kektordb_tpu/ops/scan.py:175",
+            "launches": launches, "launches_path": path,
+            "max_abs_err": max(f["max_abs_err"], serving["max_abs_err"]),
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": None, "issue_ms": f["issue_ms"],
+            "matmul_ms": f["matmul_ms"], "timed_at": f["shape"],
+            "serving_shape_ms": serving["ms"],
+            "serving_shape_bound_ms": serving["bound_ms"]})
+    kernels += [{
         "name": "gather_dist", "route": "cuda",
         "source": "kektordb_tpu_torch/csrc/gather_dist.cu",
         "replaces": "scripts/pallas_gather.py:120, "

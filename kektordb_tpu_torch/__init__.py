@@ -2,7 +2,7 @@
 H100 (sm_90a).
 
   ops/      distances, the int8 quantizer, the fused scan (pass A is the
-            CUDA kernel csrc/scan_pass_a.cu, pass B a torch top-k), the
+            CUDA kernel csrc/scan_pass_a_wgmma.cu, pass B a torch top-k), the
             hybrid text + decay epilogue (fuse.py), and the scan probes'
             kernels (scan_probe.py)
   index/    the index state as tensors; the HNSW index (graph build, scan

@@ -9,12 +9,12 @@ Two routes, chosen by the reference's own size rule (`_use_kernel`):
 
 * Kernel route, arenas on a CUDA card with >= PALLAS_MIN_ROWS rows.
   Pass A (`pass_a`) reduces each tile of ST rows to G-group minima and
-  argmins, so only [B, N/G] reaches device memory. Its forms whose
-  product is bf16 x bf16 run on the tensor cores (csrc/scan_pass_a_wgmma.cu,
-  `TENSOR_CORE_FORMS`), the full-f32 and int8 x int8 forms on the CUDA
-  cores (csrc/scan_pass_a.cu); pass B is a `torch.topk` over those minima and a rebuild
-  of each winner's row. The reference's pass B uses the TPU's
-  `approx_min_k` in approximate mode; the port's is always exact.
+  argmins, so only [B, N/G] reaches device memory. Every form runs on the
+  tensor cores (csrc/scan_pass_a_wgmma.cu), each by its own product
+  (`FORM_PRODUCTS`); pass B (`pass_b`) is a `torch.topk` over those
+  minima with the reference's tie order, then a rebuild of each winner's
+  row. The reference's pass B uses the TPU's `approx_min_k` in
+  approximate mode; the port's is always exact.
 * Exact blocked scan (`_scan_blocked`, the twin of the reference's
   `_scan_xla`) everywhere else: smaller arenas, and every CPU tensor.
 
@@ -43,11 +43,18 @@ PALLAS_MIN_ROWS = 1 << 17
 FORM_F32, FORM_F32_FAST, FORM_BF16, FORM_INT8, FORM_ASYM, FORM_ASYM_FAST = \
     range(6)
 
-# the forms whose product is bf16 x bf16 with f32 accumulation (f32 fast:
-# both rounded; asym fast: the query rounded, int8 codes exact in bf16)
-# run on the tensor-core kernel, csrc/scan_pass_a_wgmma.cu; the others on
-# the CUDA-core kernel, csrc/scan_pass_a.cu. One kernel per form.
-TENSOR_CORE_FORMS = frozenset({FORM_F32_FAST, FORM_BF16, FORM_ASYM_FAST})
+# the tensor-core product each form issues, as (operand type, products
+# per output): f32 exact is 3xTF32 (big.big + big.small + small.big),
+# asym exact three bf16 pieces of the query times the codes (exact in
+# bf16), the fast forms and bf16 one bf16 product, int8 one exact s8 one
+FORM_PRODUCTS = {
+    FORM_F32: ("tf32", 3),
+    FORM_F32_FAST: ("bf16", 1),
+    FORM_BF16: ("bf16", 1),
+    FORM_INT8: ("int8", 1),
+    FORM_ASYM: ("bf16", 3),
+    FORM_ASYM_FAST: ("bf16", 1),
+}
 
 # (query dtype, arena dtype) of each form, as the kernels read them
 FORM_DTYPES = {
@@ -59,7 +66,7 @@ FORM_DTYPES = {
     FORM_ASYM_FAST: (torch.float32, torch.int8),
 }
 
-# both kernels' blocks cover 64 groups of one tile, so the GPU's own tile
+# the kernel's blocks cover 64 groups of one tile, so the GPU's own tile
 # is 64 groups wide (see kernel_tiles)
 KERNEL_GROUPS = 64
 
@@ -102,15 +109,6 @@ def pass_a_form(q_dtype: torch.dtype, v_dtype: torch.dtype, *,
     if v_dtype == torch.int8 and q_dtype == torch.float32:
         return FORM_ASYM if exact and not fast else FORM_ASYM_FAST
     raise TypeError(f"pass A takes no query {q_dtype} x arena {v_dtype}")
-
-
-def pass_a_kernel(form: int, transposed: bool = False) -> str:
-    """The kernel that runs `form` on the card: "wgmma" (tensor cores) or
-    "cuda-core". The transposed-arena probe is bf16 on the tensor cores."""
-    if form not in FORM_DTYPES or transposed and form != FORM_BF16:
-        raise ValueError(f"pass A has no form {form} "
-                         f"(transposed={transposed})")
-    return "wgmma" if form in TENSOR_CORE_FORMS else "cuda-core"
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -162,26 +160,31 @@ def pass_a(q: torch.Tensor, vectors: torch.Tensor, biasA: torch.Tensor,
 
     Group j of tile t covers rows t*st + j + m*(st/g), m in [0, g); garg
     holds the winning m (the largest on a tie). On a CUDA tensor this
-    launches the form's kernel (`pass_a_kernel`) and counts the launch in
-    `pass_a.launches`; on a CPU tensor it runs `pass_a_plain`."""
+    launches the kernel in the form's product and counts the launch in
+    `pass_a.launches` and in `pass_a.form_launches[form]`; on a CPU tensor
+    it runs `pass_a_plain`."""
     form = pass_a_form(q.dtype, vectors.dtype, fast=fast, exact=exact)
     if not vectors.is_cuda:
         return pass_a_plain(q, vectors, biasA, biasB, st=st, g=g, form=form)
     out = launch_pass_a(q, vectors, biasA, biasB, st=st, g=g, form=form)
     pass_a.launches += 1
+    pass_a.form_launches[form] += 1
     return out
 
 
 def launch_pass_a(q, vectors, biasA, biasB, *, st: int, g: int, form: int,
                   transposed: bool = False):
     """Check the operands and launch pass A in `form` on the current
-    stream (the C entry `kektor_scan_pass_a` picks the form's kernel):
+    stream (the C entry `kektor_scan_pass_a` picks the form's product):
     (gmin, garg) as `pass_a` returns them. `transposed`: `vectors` is a
     bf16 arena vT [D, N], biasB is the constant 2 and is not passed
-    (None), and the entry `kektor_scan_vt` runs the tensor-core kernel.
+    (None), and the entry `kektor_scan_vt` runs it.
     Counts nothing: each wrapper that launches it counts its own
-    launches. Any B, N and D, and any arena stride, are taken."""
-    pass_a_kernel(form, transposed)
+    launches. Any B, N and D, and any arena stride, are taken; the
+    transposed arena is bf16 only."""
+    if form not in FORM_DTYPES or transposed and form != FORM_BF16:
+        raise ValueError(f"pass A has no form {form} "
+                         f"(transposed={transposed})")
     if (q.dtype, vectors.dtype) != FORM_DTYPES[form]:
         raise TypeError(f"form {form} takes query x arena "
                         f"{FORM_DTYPES[form]}, not {q.dtype} x "
@@ -223,6 +226,44 @@ def launch_pass_a(q, vectors, biasA, biasB, *, st: int, g: int, form: int,
 
 
 pass_a.launches = 0
+pass_a.form_launches = [0] * len(FORM_DTYPES)
+
+
+def pass_b(gmin: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row of gmin [B, M], as `lax.top_k(-gmin, k)`
+    gives them: (values ascending [B, k], positions [B, k] int64), and on
+    equal values the lower position first, both in which positions win
+    and in their order.
+
+    `torch.topk` leaves ties undefined, so it is asked for k + 1: where
+    the (k+1)-th value equals the k-th (a finite run of ties across the
+    last place), the row's winners are rebuilt from gmin (every value
+    below the k-th, then the lowest positions equal to it). Rows tied
+    only at +inf keep topk's choice: their rows are -1 either way. Then
+    the k winners are ordered by (value, position), two sorts of [B, k].
+    No sort of the whole [B, M]; finding the tied rows waits for the card
+    once (their count decides the repair's shape)."""
+    kk = min(k + 1, gmin.shape[1])
+    vals, pos = torch.topk(gmin, kk, dim=1, largest=False, sorted=True)
+    bd, bp = vals[:, :k], pos[:, :k]
+    if kk > k:
+        tied = (vals[:, k] == vals[:, k - 1]) & torch.isfinite(vals[:, k])
+        bad = tied.nonzero().squeeze(1)
+        if bad.numel():
+            g = gmin[bad]
+            t = bd[bad, k - 1:k]
+            below = g < t
+            eq = g == t
+            need = k - below.sum(1, keepdim=True)
+            take = below | (eq & (torch.cumsum(eq, 1, dtype=torch.int32)
+                                   <= need))
+            p = take.nonzero()[:, 1].view(-1, k)    # ascending per row
+            bp = bp.index_put((bad,), p)
+            bd = bd.index_put((bad,), torch.gather(g, 1, p))
+    bp, order = torch.sort(bp, dim=1)
+    bd = torch.gather(bd, 1, order)
+    bd, order = torch.sort(bd, dim=1, stable=True)
+    return bd, torch.gather(bp, 1, order)
 
 
 def _scan_kernel(q, vectors, biasA, biasB, k: int, *, exact: bool = False,
@@ -236,7 +277,7 @@ def _scan_kernel(q, vectors, biasA, biasB, k: int, *, exact: bool = False,
     W = st // g
     gmin, garg = pass_a(q, vectors, biasA, biasB, st=st, g=g, fast=fast,
                         exact=exact)
-    bd, bp = torch.topk(gmin, k, dim=1, largest=False, sorted=True)
+    bd, bp = pass_b(gmin, k)
     m = torch.gather(garg, 1, bp).long()
     rows = (bp // W) * st + bp % W + m * W
     rows = torch.where(torch.isinf(bd), -1, rows).int()

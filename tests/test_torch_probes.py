@@ -28,7 +28,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from kektordb_tpu_torch.ops import scan_probe
-from kektordb_tpu_torch.probes import matmul_ceiling, scan_proto
+from kektordb_tpu_torch.probes import matmul_ceiling, pass_b_ties, scan_proto
 
 RTOL = 1e-5
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
@@ -151,6 +151,20 @@ def test_probes_run_on_the_cpu_untimed():
     assert [s["ms"] for s in sp["sweep"]] == [None, None]
     assert sp["check"]["garg_match"] == 1.0
     assert sp["check"]["gmin_err"] < 1e-4
+
+
+def test_pass_b_ties_probe_runs_on_the_cpu_untimed(monkeypatch):
+    """pass B's probe on the CPU: both tie-order designs (the port's
+    repair and one int64-key topk) equal a stable sort on both of its
+    minima, the tied one tying at the k-th place in most rows; nothing is
+    timed; and by default it asks for the card."""
+    rows = pass_b_ties.run("cpu", b=8, m=256)
+    assert len(rows) == 12 and all(r["ms"] is None for r in rows)
+    assert all(r["tied_rows"] >= 6 if r["gmin"] == "runs of 4 ties"
+               else r["tied_rows"] == 0 for r in rows)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pass_b_ties.run(b=8, m=256)
 
 
 @pytest.mark.parametrize("probe", [matmul_ceiling.run, scan_proto.run])

@@ -19,6 +19,7 @@ against `pass_a_plain` there."""
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ import torch
 from kektordb_tpu.ops import distance as jdist
 from kektordb_tpu.ops import quantize as jquant
 from kektordb_tpu.ops import scan as jscan
+from kektordb_tpu_torch.ops import quantize as tquant
 from kektordb_tpu_torch.ops import scan as tscan
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -210,6 +212,56 @@ def test_kernel_route_matches_scan_pallas_exact():
                                atol=ATOL)
 
 
+def _dup_case(seed=0):
+    """512 random rows of d=32, each repeated 4x (`np.repeat`), and 32
+    queries: at the TPU's tiles (ST=2048, G=8, W=256) the four copies sit
+    in four neighbouring groups with the same members, so gmin holds runs
+    of four equal values at neighbouring positions (distinct rows at
+    equal distance, the deduplication traffic)."""
+    rng = np.random.default_rng(seed)
+    X = np.repeat(rng.normal(size=(512, 32)).astype(np.float32), 4, axis=0)
+    Q = rng.normal(size=(32, 32)).astype(np.float32)
+    return X, Q
+
+
+@pytest.mark.parametrize("k", [8, 10])
+def test_kernel_route_ties_match_scan_pallas_exact(k):
+    """Pass B on tied scores returns `lax.top_k`'s members and order:
+    lower position first. At k=8 the last place ends a run of four ties;
+    at k=10 it falls inside one, so which of the tied rows win matters."""
+    X, Q = _dup_case()
+    bA, bB = (np.asarray(a) for a in jscan.serving_bias(
+        jnp.asarray(X), jnp.asarray((X * X).sum(1)), jnp.ones(2048, bool),
+        jdist.L2))
+    js, jr = jscan._scan_pallas(jnp.asarray(Q), jnp.asarray(X),
+                                jnp.asarray(bA), jnp.asarray(bB), k, True,
+                                interpret=True)
+    ts, tr = tscan._scan_kernel(t(Q), t(X), t(bA), t(bB), k, exact=True,
+                                st=2048, g=8)
+    np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+    np.testing.assert_allclose(np.asarray(js), ts.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_pass_b_matches_stable_sort(k):
+    """pass_b against the reference's pass B, `lax.top_k(-gmin, k)`, and
+    against a stable sort of the whole row, on small-integer values (many
+    ties everywhere) with some +inf; rows with a run of ties across the
+    k-th place are rebuilt, the others only reordered."""
+    rng = np.random.default_rng(k)
+    g = rng.integers(0, 6, size=(64, 40)).astype(np.float32)
+    g[rng.random(g.shape) < 0.1] = np.inf
+    bd, bp = tscan.pass_b(torch.from_numpy(g), k)
+    neg, top = jax.lax.top_k(-jnp.asarray(g), k)
+    np.testing.assert_array_equal(bp.numpy(), np.asarray(top))
+    np.testing.assert_array_equal(bd.numpy(), -np.asarray(neg))
+    order = np.argsort(g, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(bp.numpy(), order)
+    np.testing.assert_array_equal(bd.numpy(),
+                                  np.take_along_axis(g, order, 1))
+
+
 def _exact_scan_taken(*args, **kwargs):
     raise AssertionError("the exact blocked scan ran instead of pass A")
 
@@ -225,6 +277,29 @@ def test_approx_read_matches_scan_search_pallas(kind, monkeypatch):
     another order)."""
     X, norms, Q, qn, metric, quantum = _case(kind, n=2048, d=32, b=32,
                                              seed=13)
+    _approx_read_both(monkeypatch, X, norms, Q, qn, metric, quantum)
+
+
+def test_approx_read_ties_match_scan_search_pallas(monkeypatch):
+    """The same read on the duplicated rows of `_dup_case`: pass B's
+    candidates on tied scores, then the re-rank's stable sort, give the
+    reference's rows. The reference's pass B is taken in its exact form
+    (`lax.top_k`): the port's pass B is always exact, and the order that
+    `approx_min_k` gives tied scores is its implementation's (on the CPU
+    an unstable sort)."""
+    X, Q = _dup_case(seed=4)
+    _approx_read_both(monkeypatch, X, (X * X).sum(1), Q,
+                      np.zeros(Q.shape[0], np.float32), jdist.L2, None,
+                      exact_pass_b=True)
+
+
+def _approx_read_both(monkeypatch, X, norms, Q, qn, metric, quantum,
+                      exact_pass_b=False):
+    """Both packages' `scan_search` (approx mode, kernel route, k=32) on
+    the same inputs, a twentieth of the rows unallocated or deleted:
+    rows equal, distances within RTOL/ATOL. `exact_pass_b`: the
+    reference's pass B is `lax.top_k` (its exact mode) while its pass A
+    stays in the fast form."""
     Q = np.asarray(jnp.asarray(Q).astype(jnp.bfloat16), np.float32)
     if X.dtype == np.float32:
         X = np.asarray(jnp.asarray(X).astype(jnp.bfloat16), np.float32)
@@ -236,8 +311,11 @@ def test_approx_read_matches_scan_search_pallas(kind, monkeypatch):
     deleted = rng.random(n) < 0.05
     st, g = _tpu_tiles(X, Q, True, False)
     monkeypatch.setattr(jscan, "_use_pallas", lambda n_rows: True)
-    monkeypatch.setattr(jscan, "_scan_pallas", functools.partial(
-        jscan._scan_pallas, interpret=True))
+    pallas = functools.partial(jscan._scan_pallas, interpret=True)
+    if exact_pass_b:
+        def pallas(q, v, bA, bB, k, exact, _ref=jscan._scan_pallas, **kw):
+            return _ref(q, v, bA, bB, k, True, interpret=True, **kw)
+    monkeypatch.setattr(jscan, "_scan_pallas", pallas)
     monkeypatch.setattr(tscan, "_use_kernel", lambda vectors: True)
     monkeypatch.setattr(tscan, "kernel_tiles", lambda n_rows: (st, g))
     for mod, name in ((jscan, "_scan_xla"), (tscan, "_scan_blocked")):
@@ -282,19 +360,27 @@ def test_gpu_tiles_and_forms():
 
 
 @pytest.mark.parametrize("form", range(6))
-def test_form_kernel_route(form):
-    """Forms whose product is bf16 x bf16 (f32 fast, bf16, asym fast) run
-    on the tensor-core kernel, the full-f32 and int8 x int8 forms on the
-    CUDA-core kernel; only the bf16 form takes a transposed arena."""
-    want = "wgmma" if form in (tscan.FORM_F32_FAST, tscan.FORM_BF16,
-                               tscan.FORM_ASYM_FAST) else "cuda-core"
-    assert tscan.pass_a_kernel(form) == want
-    assert (form in tscan.TENSOR_CORE_FORMS) == (want == "wgmma")
-    if form == tscan.FORM_BF16:
-        assert tscan.pass_a_kernel(form, transposed=True) == "wgmma"
-    else:
-        with pytest.raises(ValueError):
-            tscan.pass_a_kernel(form, transposed=True)
+def test_form_kernel_route(form, monkeypatch):
+    """Every form runs on the one tensor-core kernel, by its own product:
+    3xTF32 for f32 exact, three bf16 pieces of the query for asym exact,
+    one exact s8 product for int8 x int8, one bf16 product for the rest;
+    only the bf16 form takes a transposed arena (the others are refused
+    before the library loads)."""
+    want = {tscan.FORM_F32: ("tf32", 3), tscan.FORM_ASYM: ("bf16", 3),
+            tscan.FORM_INT8: ("int8", 1)}.get(form, ("bf16", 1))
+    assert tscan.FORM_PRODUCTS[form] == want
+
+    class Loaded(Exception):
+        pass
+
+    def load():
+        raise Loaded
+    monkeypatch.setattr(tscan.native, "load", load)
+    qd, vd = tscan.FORM_DTYPES[form]
+    q, vT = torch.zeros((4, 8), dtype=qd), torch.zeros((8, 64), dtype=vd)
+    with pytest.raises(Loaded if form == tscan.FORM_BF16 else ValueError):
+        tscan.launch_pass_a(q, vT, torch.zeros(64), None, st=32, g=4,
+                            form=form, transposed=True)
 
 
 def test_form_dtypes_follow_pass_a_form():
@@ -302,8 +388,8 @@ def test_form_dtypes_follow_pass_a_form():
         fast = form in (tscan.FORM_F32_FAST,)
         exact = form in (tscan.FORM_F32, tscan.FORM_ASYM)
         assert tscan.pass_a_form(qd, vd, fast=fast, exact=exact) == form
-    with pytest.raises(ValueError):
-        tscan.pass_a_kernel(6)
+    with pytest.raises(TypeError):
+        tscan.pass_a_form(torch.bfloat16, torch.int8)
 
 
 def _operands(B=4, N=64, D=8, qd=torch.float32, vd=torch.float32):
@@ -344,3 +430,73 @@ def test_launch_pass_a_shape_rules(name, change, err, monkeypatch):
         tscan.launch_pass_a(kw["q"], kw["v"], kw["bA"], kw["bB"],
                             st=kw["st"], g=kw["g"], form=kw["form"],
                             transposed=kw["transposed"])
+
+
+def _tf32_big(x):
+    """x with its low 13 mantissa bits cleared (the kernel's `big`)."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rna(x):
+    """x rounded to tf32, half away from zero (`cvt.rna.tf32.f32`)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_dots(q, v, form):
+    """The dots of exact forms 0 and 4 as csrc/scan_pass_a_wgmma.cu forms
+    them, each product exact and summed in f32: form 0 is 3xTF32 (big.big
+    + big.small + small.big, small = x - big rounded to tf32); form 4
+    splits the query into three bf16 pieces times the codes (exact in
+    bf16)."""
+    if form == tscan.FORM_F32:
+        qb, vb = _tf32_big(q), _tf32_big(v)
+        qs, vs = _tf32_rna(q - qb), _tf32_rna(v - vb)
+        return qs @ vb.T + qb @ vs.T + qb @ vb.T
+    pieces, r = [], q
+    for _ in range(3):
+        pieces.append(r.to(torch.bfloat16).float())
+        r = r - pieces[-1]
+    return sum(p @ v.float().T for p in reversed(pieces))
+
+
+def _sift_like(n, d, seed):
+    """Byte-range clustered rows, the scale of the SIFT-like serving data."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.0, 160.0, size=(64, d))
+    noise = rng.gamma(2.0, 1.0, size=(n, d)) * rng.choice([-1.0, 1.0],
+                                                           size=(n, d))
+    x = centers[rng.integers(0, 64, size=n)] + 11.0 * noise
+    return np.clip(x, 0.0, 255.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("form", ["f32", "asym"])
+def test_exact_form_split_within_phase3_tolerance(form):
+    """Kernel B's split arithmetic, emulated in torch on the CPU (tf32 by
+    bit masks, the bf16 pieces by casts), against the full-f32 plain
+    version at the serving scale (SIFT-like byte-range rows, D=128; unit
+    queries against cosine int8 codes): every score within the tolerance
+    chip_smoke.py's phase 3 holds the kernel to, RTOL 1e-5 of
+    max|biasA| + max|biasB| max|q| max|v|. One tf32 or bf16 pass alone
+    falls outside it, so the split's terms are what keep it inside. This
+    pins the split's error budget; it runs neither the kernel nor the JAX
+    package (chip_smoke.py holds the kernel to the plain version)."""
+    X = torch.from_numpy(_sift_like(4096 + 64, 128, seed=31))
+    v, q = X[:4096], X[4096:]
+    if form == "f32":
+        fid = tscan.FORM_F32
+        bA = (v * v).sum(1)
+        bB = torch.full_like(bA, 2.0)
+        one_pass = _tf32_big(q) @ _tf32_big(v).T
+    else:
+        fid = tscan.FORM_ASYM
+        v, norms = tquant.quantize_rowwise(v / v.norm(dim=1, keepdim=True))
+        q = q / q.norm(dim=1, keepdim=True)
+        bA, bB = torch.zeros(4096), 2.0 / norms
+        one_pass = q.to(torch.bfloat16).float() @ v.float().T
+    plain = bA - tscan._form_dots(q, v, fid) * bB
+    split = bA - _split_dots(q, v, fid) * bB
+    tol = RTOL * (float(bA.abs().max()) + float(bB.abs().max())
+                  * float(q.float().norm(dim=1).max())
+                  * float(v.float().norm(dim=1).max()))
+    assert float((split - plain).abs().max()) <= tol
+    assert float(((bA - one_pass * bB) - plain).abs().max()) > tol
