@@ -18,7 +18,9 @@ Phases, one line each; any failure exits non-zero:
             16-byte copy takes), D=768 / 2048 (a query slab streamed with
             each depth chunk), a bf16 arena at D=100 (200-byte rows),
             int8 D=384, asym exact D=384 and 768 (its three query pieces
-            streamed); int8 x int8 must be bit-equal; then an arena with
+            streamed), bf16 at the projected read's small depths D=8, 16,
+            24 and 32 (one k16 step at most; 16- to 64-byte rows); int8 x
+            int8 must be bit-equal; then an arena with
             every row masked (inf, rows -1). Then pass B's tie order: an
             arena of 2^17 rows, each of 2^15 rows repeated 4 times, k=8
             and 10, pass B (scan.pass_b) equal to a stable sort of the
@@ -53,7 +55,8 @@ Phases, one line each; any failure exits non-zero:
             (4-byte chunks) and f32 D=768 (long rows); and, check only,
             int64 ids, a bf16 query on an f32 arena, the arena one element
             off a 16-byte boundary (4-byte chunks for f32, the scalar route
-            for bf16), C=1 and a ragged B, C, and ids past the arena (+inf):
+            for bf16), C=1 and a ragged B, C, and ids past the arena (+inf);
+            and the projected read's re-rank (B=1024 C=128, D=384 f32):
             the same +inf positions and every entry within RTOL of
             |q|^2 + |v|^2 + 2|q||v|. Kernel and plain timed with cold rows:
             the calls rotate over enough fresh id sets that the others
@@ -90,7 +93,7 @@ Phases, one line each; any failure exits non-zero:
             (scores within FUSE_TOL, ids equal wherever adjacent fused
             scores differ by more); QPS; recall@10 of alpha 1 against the
             exact oracle >= 0.99; pass A and gather-distance at this
-            search's shapes (B=1024 over the index's own 2^19-row arena;
+            search's shapes (B=1024 over the index's own 2^18-row arena;
             the re-rank's 32 candidates) held against their plain versions
             as in phases 3 and 6; one search under the profiler
  11 decay   the same engine: configure_index(memory: decay_half_life 1 day,
@@ -108,7 +111,9 @@ Phases, one line each; any failure exits non-zero:
             profiler with each gather-distance call in a record_function
             range: the chunk's kernels by name, gather-distance's share of
             its device time, and no kernel but gather-distance's inside a
-            range (the wrapper launches no conversion)
+            range (the wrapper launches no conversion); then
+            optimize_layout (BFS relabel): beam QPS before and after, the
+            same ids in the same order for >= 99% of the queries
  14 int8    bench.py's cosine collection (400,000 x 384, 4,096 centroids,
             noise 0.35, seed 99, rows normalized) in an index of precision
             "int8", serve_mode "scan", int8_symmetric: Engine.search at
@@ -119,12 +124,37 @@ Phases, one line each; any failure exits non-zero:
             D=384) and timed; the same index with int8_symmetric off and
             scan_exact on (form 4), recall reported, form 4 launched, and
             form 4 held against its plain version at that shape and timed
+ 15 persist phase 7's index (after 7): a checkpoint of it (index_io +
+            checkpoint, timed, bytes) under a temporary directory of build/,
+            Engine(data_dir) opened over it (timed to the first search);
+            50,000 journaled adds (SIFT-like, seed 1240, graph linked),
+            1,000 deletes, 100 metadata patches, KV sets and links, one
+            VCONFIG; the journal flushed by the writer's own thread, the
+            engine dropped without close() (a crash); reopened (checkpoint
+            + replay: replay seconds, rows/s, the Python frame scanner's
+            share), closed (a checkpoint, timed) and reopened (checkpoint
+            only); after each reopen the B=1024 scan read as the writer
+            gave it (ids except adjacent ties, distances within RTOL), every
+            acknowledged vector bit-equal, deletes gone, KV / links /
+            metadata / VCONFIG back, beam recall@10 >= 0.95; then
+            compress_serving("int8"): recall@10 against the f32 oracle >=
+            0.90, a checkpoint and a reopen with the same reads
+ 16 proj    bench.py's anisotropic collection (400,000 x 384 cosine rows,
+            power-law spectrum, seed 424242), serve_mode "scan",
+            serve_proj_dim 32, serve_proj_rerank 128: Engine.search at
+            B=1024, k=10: QPS and recall@10 against the exact oracle (>=
+            0.90) beside the full-dimension read of the same index; pass
+            A's bf16 form at D=32 over the projected arena and the re-rank's
+            gather-distance (C=128, D=384) held against their plain
+            versions and timed beside their bounds
 Kernel times are the card's own: the timed calls queue behind a sleep
 kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
 host's issue time per call is printed beside each. Each path of phases
-7 to 14 (the build, the scan search, the beam, vacuum, import, the two
+7 to 16 (the build, the scan search, the beam, vacuum, import, the two
 probes, the hybrid and decayed searches, the bf16 build and beam, the
-exact and int8 searches) runs with every launch count set to 0 just
+exact and int8 searches, the journaled adds, the beams on reopened
+indexes, the compressed and projected reads) runs with every launch
+count set to 0 just
 before it; its counts (pass A's also by form) are read and printed just
 after, and a kernel (or pass-A form) the path runs must have launched.
 Then a JSON line of the kernels, pass A's exact and int8 forms each on
@@ -164,11 +194,17 @@ DEV = "cuda"
 # phase 3's edges of the tensor-core kernel: (label, B, D, kind); kinds:
 # f32_fast (form 1), bf16 (2), f32 (form 0, exact), int8 (3), asym (4,
 # exact); a last query slab cut short, a depth tail, a query slab
-# streamed with each depth chunk, rows of a stride no 16-byte copy takes
+# streamed with each depth chunk, rows of a stride no 16-byte copy takes,
+# and the projected read's small depths (at most one bf16 k16 step, rows
+# of 16 to 64 bytes)
 EDGE_CASES = (("B=200", 200, DIM, "f32_fast"),
               ("depth tail", KERNEL_B, 100, "f32_fast"),
               ("streamed query slab", KERNEL_B, 768, "f32_fast"),
               ("200-byte rows", KERNEL_B, 100, "bf16"),
+              ("small depth", KERNEL_B, 8, "bf16"),
+              ("small depth", KERNEL_B, 16, "bf16"),
+              ("small depth", KERNEL_B, 24, "bf16"),
+              ("small depth", KERNEL_B, 32, "bf16"),
               ("B=200", 200, DIM, "f32"),
               ("depth tail", KERNEL_B, 100, "f32"),
               ("streamed query slab", KERNEL_B, 768, "f32"),
@@ -198,7 +234,9 @@ PROBE_B, PROBE_N = 4096, 1 << 20
 VT_TILE = (4096, 8)
 PROBE_RAGGED = 77
 # phases 10-11
-HYBRID_N, HYBRID_B, HYBRID_SEED = 500_000, 1024, 1236
+# cut from 500,000 rows to leave the script's time limit room for the
+# persistence and projected-read phases
+HYBRID_N, HYBRID_B, HYBRID_SEED = 250_000, 1024, 1236
 STEADY = 3           # decayed searches timed once the mirror is fresh
 REINFORCE_ROUNDS = 2
 VOCAB, WORDS = 5000, (8, 16)
@@ -209,8 +247,17 @@ REINFORCED = 64
 INT8_N, INT8_DIM, INT8_CENTROIDS, INT8_NOISE, INT8_SEED = \
     400_000, 384, 4096, 0.35, 99
 INT8_B, INT8_BATCHES = 1024, 8      # the two query batches, 4 times
+# phase 15: the journal written over phase 7's checkpointed index
+PERSIST_ADDS, PERSIST_DELETES, PERSIST_PATCHES = 50_000, 1_000, 100
+PERSIST_SEED, PERSIST_B, PERSIST_EF = 1240, 1024, 128
+INT8_COMPRESS_RECALL_MIN = 0.90
+# phase 16: bench.py's anisotropic collection (bench.py:819-900)
+PROJ_N, PROJ_DIM, PROJ_SEED = 400_000, 384, 424242
+PROJ_P, PROJ_RERANK, PROJ_B, PROJ_BATCHES = 32, 128, 1024, 8
+PROJ_RECALL_MIN = 0.90
 # phase 12: rows of the bf16 default index
 BF16_N, BF16_SEED = 500_000, 1237
+LAYOUT_SAME_MIN = 0.99
 FUSE_TOL = 1e-5
 RERANK_C = 32        # the scan re-rank's candidates (kf) at k = 2 * K
 # the bound: NVIDIA's H100 SXM figures (dense), at the card's power limit
@@ -1181,11 +1228,278 @@ def graph_path(torch, card: str) -> dict:
           f"{beam_ms:.3f} ms batch, idle {1 - dev / beam_ms:.3f}; device "
           f"time by op: {top} [{card}]", flush=True)
     build_parts(torch, idx, card)
-    eng.close()
     return {"build_s": build_s, "beam_qps": BEAM_BATCHES * BEAM_B / beam_s,
             "beam_recall": beam_recall, "scan_recall": scan_recall,
             "beam_launches": beam_counts["gather_dist"],
-            "build_launches": build_counts["gather_dist"]}
+            "build_launches": build_counts["gather_dist"],
+            "eng": eng, "base": base, "queries": queries}
+
+
+def same_reads(want, got, label: str) -> int:
+    """Two Engine.search results of one batch: every distance within RTOL
+    of the larger (|d| + 1), and the same ids except where two adjacent
+    distances of `want` tie within that tolerance. Returns how many
+    positions were excused as ties."""
+    excused = 0
+    for b, (hw, hg) in enumerate(zip(want, got)):
+        dw = np.array([h["distance"] for h in hw])
+        dg = np.array([h["distance"] for h in hg])
+        if dw.shape != dg.shape or np.any(
+                np.abs(dw - dg) > RTOL * (np.abs(dw) + 1.0)):
+            raise AssertionError(f"{label}: query {b} distances differ")
+        tol = RTOL * (np.abs(dw) + 1.0)
+        for j, (a, c) in enumerate(zip(hw, hg)):
+            if a["id"] == c["id"]:
+                continue
+            near = [i for i in (j - 1, j + 1) if 0 <= i < len(dw)
+                    and abs(dw[i] - dw[j]) <= tol[j]]
+            if not near:
+                raise AssertionError(f"{label}: query {b} place {j}: "
+                                     f"{a['id']} against {c['id']}")
+            excused += 1
+    return excused
+
+
+def persist_checks(torch, eng, want, Q, X, X2, dead, label: str,
+                   card: str) -> dict:
+    """A reopened persistence engine against what its writer acknowledged:
+    the B=PERSIST_B scan read (`same_reads`), every row's vector bit-equal
+    (the checkpoint's SIFT-like rows and the journaled adds), the deleted
+    ids gone, the KV pairs, links, metadata patches and VCONFIG back, and
+    beam recall@K >= BEAM_RECALL_MIN against the exact oracle over the
+    live rows. Returns {"excused", "beam_recall", "beam_launches"}."""
+    from kektordb_tpu_torch.ops import distance as dist
+    idx = eng.indexes["graph"].index
+    got = eng.search("graph", Q, k=K)
+    excused = same_reads(want, got, label)
+    ext = [f"g{i}" for i in range(GRAPH_N)] + \
+        [f"p{i}" for i in range(PERSIST_ADDS)]
+    gone = set(dead)
+    live = [e not in gone for e in ext]
+    rows = [idx.ids.get(e) for e, ok in zip(ext, live) if ok]
+    if any(r is None for r in rows) or any(idx.ids.get(e) is not None
+                                           for e in dead):
+        raise AssertionError(f"{label}: an acknowledged add is missing, or "
+                             "a deleted id is back")
+    allx = np.concatenate([X, X2])
+    vecs = idx.state.vectors[torch.tensor(rows, device=DEV).long()]
+    if not torch.equal(vecs, torch.from_numpy(allx[np.array(live)]).to(DEV)):
+        raise AssertionError(f"{label}: a vector did not read back "
+                             "bit-equal")
+    for i in range(PERSIST_PATCHES):
+        if eng.get("graph", f"g{i * 13 + 1}")["metadata"].get("tag") != i:
+            raise AssertionError(f"{label}: metadata patch {i} lost")
+        if eng.kv_get(f"key{i}") != f"value{i}".encode():
+            raise AssertionError(f"{label}: KV pair {i} lost")
+        if ("near", f"p{i}") not in {(x["relation"], x["target"]) for x in
+                                     eng.get_edges("graph", f"g{i * 7 + 2}")}:
+            raise AssertionError(f"{label}: link {i} lost")
+    if idx.config.ef_search != PERSIST_EF:
+        raise AssertionError(f"{label}: VCONFIG lost")
+    gt = dist.brute_force_topk(
+        torch.from_numpy(Q).to(DEV), torch.from_numpy(allx).to(DEV), K,
+        valid=torch.tensor(live, device=DEV))[1].cpu().numpy()
+    ext_np = np.array(ext)
+    (_, brows), _, counts = counted(
+        torch, f"beam on the {label} index",
+        lambda: idx.search(Q, K, mode="beam"), ("gather_dist",))
+    got_ext = np.array([[idx.ids.row_to_ext[r] if r >= 0 else "" for r in q]
+                        for q in brows])
+    rec = float(np.mean([len(set(got_ext[b]) & set(ext_np[gt[b]])) / K
+                         for b in range(len(Q))]))
+    print(f"phase persist: {label}: B={len(Q)} scan read as before "
+          f"({excused} places excused as ties), {len(rows)} vectors "
+          f"bit-equal, {len(dead)} deleted ids gone, KV / links / metadata "
+          f"/ VCONFIG back; beam recall@{K} {rec:.4f} (ef_search "
+          f"{idx.config.ef_search}) [{card}]", flush=True)
+    if rec < BEAM_RECALL_MIN:
+        raise AssertionError(f"{label}: beam recall {rec} < "
+                             f"{BEAM_RECALL_MIN}")
+    return {"excused": excused, "beam_recall": rec,
+            "beam_launches": counts["gather_dist"]}
+
+
+def du(root: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+
+
+def persist_phase(torch, graph: dict, card: str) -> dict:
+    """Phase 15 on phase 7's index (GRAPH_N SIFT-like rows, built there):
+    a checkpoint of it through index_io + checkpoint, an Engine opened over
+    it, PERSIST_ADDS journaled adds (a new seed, graph linked), deletes,
+    metadata patches, KV sets, links and a VCONFIG; the writer's own
+    thread flushes the journal, and the engine is dropped without close()
+    (a crash); reopened (checkpoint + replay), closed (a checkpoint) and
+    reopened again, each reopen held to the writer (`persist_checks`).
+    Then compress_serving("int8") on that index: recall@K against the f32
+    oracle, a checkpoint and a reopen with the same reads. All under a
+    temporary directory of build/, removed at the end."""
+    import gc as pygc
+    import os
+    import shutil
+    import tempfile
+
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import scan
+    from kektordb_tpu_torch.persist import aof, checkpoint, index_io
+    X, Q = graph.pop("base"), graph.pop("queries")[:PERSIST_B]
+    eng0 = graph.pop("eng")
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="persist_", dir="build")
+    print(f"phase persist: {shutil.disk_usage(root).free / 2**30:.1f} GiB "
+          f"free under {root}", flush=True)
+    ckpt_root = os.path.join(root, "checkpoints")
+
+    def open_engine(label):
+        t0 = time.perf_counter()
+        eng = Engine(EngineConfig(device=DEV, data_dir=root,
+                                  start_background=False)).open()
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        eng.search("graph", Q[:1], k=K)
+        torch.cuda.synchronize()
+        return eng, open_s, time.perf_counter() - t0
+
+    def drop(eng):
+        eng.indexes.clear()
+        pygc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        idx0 = eng0.indexes["graph"].index
+        t0 = time.perf_counter()
+        arrays = {}
+        st = index_io.dump_index(idx0, "graph", arrays)
+        st.update(lazy=False, language="english", memory={}, auto_links=[],
+                  metadata={})
+        checkpoint.save(ckpt_root, arrays, {"version": 1, "kv": {},
+                                            "graph": {},
+                                            "indexes": {"graph": st}})
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = du(root)
+        del arrays, idx0
+        eng0.close()
+        drop(eng0)
+        e1, open1_s, load1_s = open_engine("checkpoint")
+        print(f"phase persist: checkpoint of phase 7's {GRAPH_N} x {DIM} "
+              f"index (index_io.dump_index + checkpoint.save) in "
+              f"{save_s:.3f} s, {ckpt_bytes} bytes; Engine(data_dir) "
+              f"open {open1_s:.3f} s, searchable after {load1_s:.3f} s "
+              f"[{card}]", flush=True)
+
+        X2 = make_sift_like(PERSIST_ADDS, DIM, seed=PERSIST_SEED)
+        _, add_s, add_counts = counted(
+            torch, "journaled Engine.add_batch (graph linked)",
+            lambda: e1.add_batch("graph", [f"p{i}" for i in
+                                           range(PERSIST_ADDS)], X2),
+            ("gather_dist",))
+        dead = [f"g{i * 997}" for i in range(PERSIST_DELETES)]
+        for e in dead:
+            e1.delete("graph", e)
+        for i in range(PERSIST_PATCHES):
+            e1.update_metadata("graph", f"g{i * 13 + 1}", {"tag": i})
+            e1.kv_set(f"key{i}", f"value{i}".encode())
+            e1.link("graph", f"g{i * 7 + 2}", "near", f"p{i}")
+        e1.configure_index("graph", {"ef_search": PERSIST_EF})
+        want = e1.search("graph", Q, k=K)
+        time.sleep(1.5)       # past the writer's flush and fsync cadence
+        if e1._aof._buf:
+            raise AssertionError("the journal's own thread left frames "
+                                 "unflushed after 1.5 s")
+        aof_path = os.path.join(root, "journal.aof")
+        aof_bytes = os.path.getsize(aof_path)
+        e1._aof.close()       # flushes nothing more: a crash leaves this
+        drop(e1)
+        t0 = time.perf_counter()
+        with open(aof_path, "rb") as f:
+            frames, corrupt = aof.scan_frames(f.read())
+        scan_s = time.perf_counter() - t0
+        e2, open2_s, load2_s = open_engine("checkpoint + journal")
+        replay_s = open2_s - open1_s
+        ops = PERSIST_ADDS + PERSIST_DELETES + 3 * PERSIST_PATCHES + 1
+        print(f"phase persist: journaled {PERSIST_ADDS} adds (graph linked "
+              f"in {add_s:.3f} s, gather_dist launches "
+              f"{add_counts['gather_dist']}), {PERSIST_DELETES} deletes, "
+              f"{PERSIST_PATCHES} metadata patches, KV sets and links, one "
+              f"VCONFIG: {len(frames)} frames, {aof_bytes} bytes, "
+              f"{len(corrupt)} corrupt; crash, then Engine(data_dir) open "
+              f"(checkpoint + replay) {open2_s:.3f} s, searchable after "
+              f"{load2_s:.3f} s; replay {replay_s:.3f} s over the "
+              f"checkpoint-only open ({PERSIST_ADDS / replay_s:.1f} rows/s, "
+              f"{ops / replay_s:.1f} ops/s), frame scanner (Python) "
+              f"{scan_s:.3f} s = {scan_s / replay_s:.3f} of it [{card}]",
+              flush=True)
+        if len(frames) != ops or corrupt:
+            raise AssertionError(f"journal: {len(frames)} frames for {ops} "
+                                 f"ops, {len(corrupt)} corrupt regions")
+        c2 = persist_checks(torch, e2, want, Q, X, X2, dead,
+                            "checkpoint + replay", card)
+        t0 = time.perf_counter()
+        e2.close()
+        close_s = time.perf_counter() - t0
+        drop(e2)
+        disk = du(root)
+        e3, open3_s, load3_s = open_engine("checkpoint")
+        print(f"phase persist: close() (checkpoint of "
+              f"{GRAPH_N + PERSIST_ADDS} rows) {close_s:.3f} s, {disk} bytes "
+              f"on disk; Engine(data_dir) open (checkpoint only) "
+              f"{open3_s:.3f} s, searchable after {load3_s:.3f} s [{card}]",
+              flush=True)
+        c3 = persist_checks(torch, e3, want, Q, X, X2, dead,
+                            "checkpoint-only reopen", card)
+
+        idx = e3.indexes["graph"].index
+        idx.compress_serving("int8")
+        live = torch.ones(GRAPH_N + PERSIST_ADDS, dtype=torch.bool,
+                          device=DEV)
+        live[torch.tensor([i * 997 for i in range(PERSIST_DELETES)],
+                          device=DEV)] = False
+        allx = torch.from_numpy(np.concatenate([X, X2])).to(DEV)
+        gt = dist.brute_force_topk(torch.from_numpy(Q).to(DEV), allx, K,
+                                   valid=live)[1].cpu().numpy()
+        wq, _, qcounts = counted(torch, "compressed int8 Engine.search",
+                                 lambda: e3.search("graph", Q, k=K),
+                                 ("scan_pass_a",), (scan.FORM_ASYM_FAST,))
+        ext = [f"g{i}" for i in range(GRAPH_N)] + \
+            [f"p{i}" for i in range(PERSIST_ADDS)]
+        rec = float(np.mean([len({h["id"] for h in wq[b]}
+                                 & {ext[r] for r in gt[b]}) / K
+                             for b in range(len(Q))]))
+        t0 = time.perf_counter()
+        e3.close()
+        cclose_s = time.perf_counter() - t0
+        drop(e3)
+        e4, open4_s, _ = open_engine("compressed")
+        if not e4.indexes["graph"].index._serve_quantized:
+            raise AssertionError("compressed index reopened unquantized")
+        excused = same_reads(wq, e4.search("graph", Q, k=K),
+                             "compressed reopen")
+        print(f"phase persist: compress_serving('int8') of the reopened "
+              f"index: Engine.search B={len(Q)} recall@{K} {rec:.4f} "
+              f"against the f32 oracle (min {INT8_COMPRESS_RECALL_MIN}), "
+              f"pass A form {scan.FORM_ASYM_FAST} launches "
+              f"{qcounts['scan_pass_a forms'][scan.FORM_ASYM_FAST]}; "
+              f"close() {cclose_s:.3f} s, reopen {open4_s:.3f} s: the same "
+              f"ids and distances ({excused} places excused as ties) "
+              f"[{card}]", flush=True)
+        if rec < INT8_COMPRESS_RECALL_MIN:
+            raise AssertionError(f"compressed int8 recall {rec} < "
+                                 f"{INT8_COMPRESS_RECALL_MIN}")
+        e4._aof.close()
+        drop(e4)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"save_s": save_s, "load_s": load1_s, "replay_s": replay_s,
+            "replay_rows_s": PERSIST_ADDS / replay_s,
+            "scan_share": scan_s / replay_s, "close_s": close_s,
+            "load_after_close_s": load3_s, "bytes": disk,
+            "add_launches": add_counts["gather_dist"],
+            "beam_launches": c2["beam_launches"] + c3["beam_launches"],
+            "int8_recall": rec,
+            "int8_launches": qcounts["scan_pass_a"]}
 
 
 def vacuum_and_import(torch, card: str) -> None:
@@ -1710,12 +2024,46 @@ def graph_bf16_phase(torch, card: str) -> dict:
     extra = make_sift_like(ch, DIM, seed=BF16_SEED + 1)
     share = chunk_kernels(torch, idx, [f"x{i}" for i in range(ch)], extra,
                           card)
+    layout = layout_phase(torch, idx, queries, card)
     eng.close()
     return {"build_s": build_s, "beam_qps": qps, "scan_recall": scan_recall,
             "beam_recall": beam_recall, "chunk_gather_share": share,
             "build_launches": build_counts["gather_dist"],
-            "beam_launches": beam_counts["gather_dist"],
-            "build_launches": build_counts["gather_dist"]}
+            "beam_launches": beam_counts["gather_dist"], "layout": layout}
+
+
+def layout_phase(torch, idx, queries, card: str) -> dict:
+    """optimize_layout on phase 12's bf16 index (no row freed): BEAM_BATCHES
+    beam batches before and after, timed; each query's ids after equal to
+    its ids before on >= LAYOUT_SAME_MIN of the queries."""
+    def beam(label):
+        idx.search(queries[:BEAM_B], K, mode="beam")       # warm
+        out, sec, counts = counted(
+            torch, f"bf16 index beam, {label} optimize_layout",
+            lambda: [idx.search(queries[i * BEAM_B:(i + 1) * BEAM_B], K,
+                                mode="beam")[1]
+                     for i in range(BEAM_BATCHES)], ("gather_dist",))
+        ids = [[tuple(idx.ids.row_to_ext[r] for r in q) for q in rows]
+               for rows in out]
+        return ids, BEAM_BATCHES * BEAM_B / sec, counts["gather_dist"]
+    before, qps0, _ = beam("before")
+    t0 = time.perf_counter()
+    idx.optimize_layout()
+    torch.cuda.synchronize()
+    lay_s = time.perf_counter() - t0
+    after, qps1, launches = beam("after")
+    pairs = [(a, b) for ba, bb in zip(before, after) for a, b in zip(ba, bb)]
+    same = sum(a == b for a, b in pairs) / len(pairs)
+    print(f"phase graph bf16: optimize_layout of {len(idx)} rows in "
+          f"{lay_s:.3f} s; beam B={BEAM_B} before {qps0:.1f} QPS, after "
+          f"{qps1:.1f} QPS; {same:.4f} of {len(pairs)} queries return the "
+          f"same ids in the same order (min {LAYOUT_SAME_MIN}) [{card}]",
+          flush=True)
+    if same < LAYOUT_SAME_MIN:
+        raise AssertionError(f"optimize_layout changed the beam's ids on "
+                             f"{1 - same:.4f} of the queries")
+    return {"s": lay_s, "qps_before": qps0, "qps_after": qps1,
+            "same": same, "beam_launches": launches}
 
 
 def cosine_corpus(n: int, nq: int) -> tuple[np.ndarray, np.ndarray]:
@@ -1835,6 +2183,125 @@ def int8_phase(torch, card: str) -> dict:
             "int8": sym, "asym exact": asym}
 
 
+def aniso_corpus(n: int, nq: int) -> tuple[np.ndarray, np.ndarray]:
+    """bench.py's anisotropic collection (bench.py:826-839): PROJ_DIM-d
+    rows, a power-law spectrum (per-dimension scale (1 + j)^-0.55, so
+    energy ~ (1 + j)^-1.1), 4,096 centroids plus 0.35-scaled noise, rows
+    normalized, seed PROJ_SEED; the queries are the draw's last nq rows."""
+    rng = np.random.default_rng(PROJ_SEED)
+    scale = (1.0 + np.arange(PROJ_DIM, dtype=np.float32)) ** -0.55
+    raw = np.empty((n + nq, PROJ_DIM), np.float32)
+    cents = rng.normal(size=(4096, PROJ_DIM)).astype(np.float32) * scale
+    bs = 131_072
+    for i in range(0, raw.shape[0], bs):
+        m = min(bs, raw.shape[0] - i)
+        which = rng.integers(0, 4096, size=m)
+        raw[i:i + m] = cents[which] + 0.35 * scale * rng.normal(
+            size=(m, PROJ_DIM)).astype(np.float32)
+    raw /= np.linalg.norm(raw, axis=1, keepdims=True) + 1e-12
+    return raw[:n], raw[n:]
+
+
+def proj_phase(torch, card: str) -> dict:
+    """Phase 16: the PCA-projected read on bench.py's anisotropic
+    collection (PROJ_N x PROJ_DIM cosine rows), serve_mode "scan",
+    serve_proj_dim PROJ_P, serve_proj_rerank PROJ_RERANK: Engine.search at
+    PROJ_B, k=K, PROJ_BATCHES times: QPS, recall@K against the exact
+    oracle (>= PROJ_RECALL_MIN), pass A's bf16 form and gather-distance
+    launched; the full-dimension read of the same index (serve_proj_dim 0
+    through VCONFIG) beside it. Then, at the read's own shapes: pass A's
+    bf16 form over the [cap, PROJ_P] projected arena held against its plain
+    version and timed (`hold_form`), and the re-rank's gather-distance
+    (PROJ_RERANK candidates in full dimension) held and timed, each beside
+    its bound. Returns the numbers and both kernels' dicts."""
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import scan
+    from kektordb_tpu_torch.probes import gather_cold as gc
+    base, queries = aniso_corpus(PROJ_N, 2 * PROJ_B)
+    eng = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    eng.create_index("aniso", metric=dist.COSINE, serve_mode="scan",
+                     serve_proj_dim=PROJ_P, serve_proj_rerank=PROJ_RERANK)
+    t0 = time.perf_counter()
+    eng.add_batch("aniso", [f"a{i}" for i in range(PROJ_N)], base)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    idx = eng.indexes["aniso"].index
+    Q = queries[:PROJ_B]
+    gt = dist.brute_force_topk(torch.from_numpy(Q).to(DEV),
+                               torch.from_numpy(base).to(DEV), K,
+                               dist.COSINE)[1].cpu().numpy()
+    t0 = time.perf_counter()
+    eng.search("aniso", Q, k=K)         # fits the basis, builds the arena
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if idx._proj is None or idx._proj[0].shape != (idx._cap, PROJ_P):
+        raise AssertionError("the projected arena was not built")
+
+    def searches():
+        return [eng.search("aniso", queries[j * PROJ_B:(j + 1) * PROJ_B],
+                           k=K) for j in (i % 2 for i in range(PROJ_BATCHES))]
+
+    def recall(res):
+        return recall_at(np.array([[int(x["id"][1:]) for x in h]
+                                   for h in res]), gt)
+    res, sec, counts = counted(torch, "projected Engine.search", searches,
+                               ("scan_pass_a", "gather_dist"),
+                               (scan.FORM_BF16,))
+    qps, rec = PROJ_BATCHES * PROJ_B / sec, recall(res[0])
+    eng.configure_index("aniso", {"serve_proj_dim": 0})
+    eng.search("aniso", Q, k=K)                                # warm
+    fres, fsec, _ = counted(torch, "full-dimension Engine.search (same "
+                            "index)", searches, ("scan_pass_a",))
+    fqps, frec = PROJ_BATCHES * PROJ_B / fsec, recall(fres[0])
+    print(f"phase proj: {PROJ_N} x {PROJ_DIM} cosine rows (bench.py's "
+          f"anisotropic collection, seed {PROJ_SEED}), ingest "
+          f"{ingest_s:.3f} s; serve_proj_dim={PROJ_P}, serve_proj_rerank="
+          f"{PROJ_RERANK}: first search (basis fit + projection) "
+          f"{first_s:.3f} s; Engine.search B={PROJ_B} k={K}: {qps:.1f} QPS, "
+          f"recall@{K} {rec:.4f} against the exact oracle (min "
+          f"{PROJ_RECALL_MIN}); the full-dimension read of the same index: "
+          f"{fqps:.1f} QPS, recall@{K} {frec:.4f} [{card}]", flush=True)
+    if rec < PROJ_RECALL_MIN:
+        raise AssertionError(f"projected recall {rec} < {PROJ_RECALL_MIN}")
+    eng.configure_index("aniso", {"serve_proj_dim": PROJ_P})
+    Pa, pn = idx._proj_arena()
+    q, qn = idx._encode_query(idx._queries(Q))
+    qp = (q @ idx._proj_basis).to(torch.bfloat16)
+    bA, bB = scan.serving_bias(Pa, pn, (idx.state.levels >= 0)
+                               & ~idx.state.deleted, dist.COSINE)
+    st, g = scan.kernel_tiles(Pa.shape[0])
+    pa = hold_form(torch, card, f"projected read's (D={PROJ_P})", qp, Pa,
+                   bA, bB, st, g, False)
+    C = min(max(PROJ_RERANK, 2 * K), idx._cap // scan.g_for(idx._cap))
+    _, rows = scan.scan_search(Pa, pn, idx.state.levels, idx.state.deleted,
+                               None, qp, torch.zeros(PROJ_B, device=DEV), C,
+                               metric=dist.COSINE, fast=True)
+    v = idx.state.vectors
+    err, ratio, n_inf = hold_gather(
+        torch, "projected re-rank", v, rows, q, dist.COSINE,
+        corpus_norms=idx.state.norms, query_norms=qn)
+    kw = dict(corpus_norms=idx.state.norms, query_norms=qn)
+    kt = cuda_ms(torch, lambda: dist.gathered(v, rows, q, dist.COSINE,
+                                              **kw), 10)
+    pt = cuda_ms(torch, lambda: dist.gathered_plain(v, rows, q,
+                                                    dist.COSINE), 5)
+    bms, by = gc.bound_ms([rows], PROJ_DIM, gc.row_bytes(PROJ_DIM, "f32"),
+                          q.element_size())
+    print(f"phase proj: re-rank gather-distance B={PROJ_B} C={C} "
+          f"D={PROJ_DIM} f32 [{dist.gather_route(v)}]: max|err| {err:.6g} "
+          f"({ratio:.3g} of tol), +inf {n_inf}; kernel {kt.ms:.4f} ms "
+          f"({issue_note(kt)}), plain {pt.ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), share {bms / kt.ms:.3f} [{card}]", flush=True)
+    eng.close()
+    return {"qps": qps, "recall": rec, "full_qps": fqps, "full_recall": frec,
+            "pass_a_launches": counts["scan_pass_a"],
+            "gather_launches": counts["gather_dist"], "pass_a": pa,
+            "gather": {"ms": kt.ms, "issue_ms": kt.issue_ms,
+                       "plain_ms": pt.ms, "bound_ms": bms, "bound_by": by,
+                       "max_abs_err": err, "shape": [PROJ_B, C, PROJ_DIM]}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1867,18 +2334,28 @@ def main() -> int:
           f"{main['recall']:.4f} [{card}]", flush=True)
     gather = check_gather(torch, card)
     graph = graph_path(torch, card)
+    persist = persist_phase(torch, graph, card)
     vacuum_and_import(torch, card)
     probes = probes_phase(torch, card)
     eng, Q, path_errs = hybrid_phase(torch, card)
     decay_phase(torch, eng, Q, card)
     bf16 = graph_bf16_phase(torch, card)
     int8 = int8_phase(torch, card)
+    proj = proj_phase(torch, card)
 
     leaked = [m for m in sys.modules
               if m in ("jax", "jaxlib", "kektordb_tpu")
               or m.startswith(("jax.", "jaxlib.", "kektordb_tpu."))]
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked}")
+    print(f"phase times: persistence at {GRAPH_N} x {DIM}: save "
+          f"{persist['save_s']:.3f} s, load {persist['load_s']:.3f} s, replay "
+          f"{persist['replay_s']:.3f} s ({persist['replay_rows_s']:.1f} "
+          f"rows/s, scanner share {persist['scan_share']:.3f}), "
+          f"{persist['bytes']} bytes on disk; projected read "
+          f"{proj['qps']:.1f} QPS at recall@{K} {proj['recall']:.4f} "
+          f"(full-dimension {proj['full_qps']:.1f} QPS at "
+          f"{proj['full_recall']:.4f}) [{card}]", flush=True)
     print(f"phase total: {time.perf_counter() - t_start:.1f} s [{card}]",
           flush=True)
     # no single PyTorch call computes any of these kernels' functions
@@ -1890,6 +2367,12 @@ def main() -> int:
         "source": "kektordb_tpu_torch/csrc/scan_pass_a_wgmma.cu",
         "replaces": "kektordb_tpu/ops/scan.py:175",
         "launches": main["launches"],
+        "launches_by_path": {
+            "phase 4, scan read (fast form)": main["launches"],
+            "phase 15, compressed int8 read (form 5)":
+                persist["int8_launches"],
+            "phase 16, projected read (bf16 form, D=32)":
+                proj["pass_a_launches"]},
         "max_abs_err": max(max_err, path_errs["scan_pass_a"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1938,8 +2421,39 @@ def main() -> int:
             "graph build (1M f32)": graph["build_launches"],
             "beam (f32 index)": graph["beam_launches"],
             "graph build (500k bf16)": bf16["build_launches"],
-            "beam (bf16 index)": bf16["beam_launches"]},
+            "beam (bf16 index)": bf16["beam_launches"],
+            "journaled adds, graph linked (phase 15)":
+                persist["add_launches"],
+            "beam on the reopened indexes (phase 15)":
+                persist["beam_launches"],
+            "projected re-rank (phase 16)": proj["gather_launches"],
+            "beam after optimize_layout (phase 12)":
+                bf16["layout"]["beam_launches"]},
         "chunk_share_bf16_build": bf16["chunk_gather_share"]}]
+    # the projected read's new shapes: pass A's bf16 form at depth PROJ_P
+    # and the full-dimension re-rank, each timed on that read's operands
+    pa, ga = proj["pass_a"], proj["gather"]
+    kernels += [{
+        "name": f"scan_pass_a form {pa['form']} (bf16, projected D={PROJ_P})",
+        "route": "cuda",
+        "source": "kektordb_tpu_torch/csrc/scan_pass_a_wgmma.cu",
+        "replaces": "kektordb_tpu/ops/scan.py:175",
+        "launches": proj["pass_a_launches"],
+        "launches_path": "phase 16, projected read",
+        "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
+        "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
+        "bound_by": pa["bound_by"], "library_ms": None,
+        "issue_ms": pa["issue_ms"], "timed_at": pa["shape"]}, {
+        "name": "gather_dist (projected re-rank)", "route": "cuda",
+        "source": "kektordb_tpu_torch/csrc/gather_dist.cu",
+        "replaces": "scripts/pallas_gather.py:120, "
+                    "scripts/pallas_gather2.py:170",
+        "launches": proj["gather_launches"],
+        "launches_path": "phase 16, projected read",
+        "max_abs_err": ga["max_abs_err"], "ms": ga["ms"],
+        "plain_ms": ga["plain_ms"], "bound_ms": ga["bound_ms"],
+        "bound_by": ga["bound_by"], "library_ms": None,
+        "issue_ms": ga["issue_ms"], "timed_at": ga["shape"]}]
     for name, replaces in (("scan_vT", "scripts/matmul_ceiling.py:90"),
                            ("scan_reduce", "scripts/scan_pallas_proto.py:46")):
         pr = probes[name]

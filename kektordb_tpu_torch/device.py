@@ -35,10 +35,12 @@ def resolve(device="cuda") -> torch.device:
 
 
 def from_numpy(a, device) -> torch.Tensor:
-    """numpy array (or scalar) -> tensor on `device`. bfloat16 arrays from
-    JAX (ml_dtypes) have no torch counterpart in `from_numpy`: they cross
-    as their uint16 bit pattern. The data is copied: the tensor is written
-    in place later, and arrays fetched from JAX are read-only."""
+    """numpy array, scalar or tensor -> tensor on `device`. bfloat16 arrays
+    from JAX (ml_dtypes) have no torch counterpart in `from_numpy`: they
+    cross as their uint16 bit pattern. The data is copied: the tensor is
+    written in place later, and arrays fetched from JAX are read-only."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True)
     a = np.array(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(

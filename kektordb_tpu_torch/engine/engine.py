@@ -10,19 +10,29 @@ agent-memory time decay run through the device epilogue of ops/fuse.py
 where the index serves from the scan (`search_device`), else through the
 host path `_assemble_fused`, the same math in float64.
 
+Persistence (`data_dir`), in the JAX package's on-disk formats: every
+mutation is validated, then journaled to the AOF (persist/aof.py), then
+applied in memory; `open` loads the newest checkpoint
+(persist/checkpoint.py + index_io.py) and replays the journal after it;
+`save_snapshot` writes a checkpoint and empties the journal (`close`,
+`import_batch` and the background loop call it).
+
 Not ported yet, and refused with NotImplementedError (ROADMAP.md, queue 1,
-item numbers in the messages): persistence (`data_dir`: AOF and
-checkpoints), sharded indexes (`shards > 1`), host-arena indexes
-(`kind="host"`), and every option the index refuses (`serve_proj_dim`,
-`serve_proj_rerank`). Without persistence nothing is journaled.
+item numbers in the messages): sharded indexes (`shards > 1`) and
+host-arena indexes (`kind="host"`). A journal or checkpoint written with
+shards opens unsharded, as the JAX package opens it on a host with fewer
+devices.
 """
 
 from __future__ import annotations
 
+import inspect
+import json
 import logging
+import os
 import threading
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from dataclasses import asdict, dataclass
 from typing import Any, Optional, Sequence
 
@@ -31,13 +41,18 @@ import numpy as np
 from .. import device as devlib
 from ..index.base import IDMap
 from ..index.bruteforce import BruteForceIndex
-from ..index.hnsw import HNSWConfig, HNSWIndex, check_supported
+from ..index.hnsw import (SERVE_MODES, HNSWConfig, HNSWIndex,
+                          check_supported)
 from ..ops import distance as dist
 from ..ops import fuse as fuselib
+from ..persist import aof as aoflib
+from ..persist import checkpoint as ckptlib
+from ..persist import index_io
+from ..persist.resp import format_command, parse_command
 from . import filters as filtlib
 from . import fusion
 from .events import Event, EventBus
-from .graph import KnowledgeGraph
+from .graph import Edge, KnowledgeGraph, ReverseEdge
 from .kv import KVStore
 from .locks import RWLock
 from .metadata import MetadataStore
@@ -60,9 +75,13 @@ class AutoLinkRule:
 @dataclass
 class EngineConfig:
     device: str = "cuda"                    # raises if CUDA is absent
-    data_dir: Optional[str] = None          # persistence: not ported yet
+    data_dir: Optional[str] = None          # None -> in memory only
+    snapshot_interval: float = 60.0         # engine.go:324 checkMaintenance
+    snapshot_dirty_threshold: int = 1000
     maintenance_interval: float = 10.0      # maintenance tick
     graph_vacuum_interval: float = 3600.0   # hourly graph vacuum
+    aof_rewrite_growth: float = 1.0         # rewrite at 100% growth
+    aof_rewrite_min_bytes: int = 1 << 20    # min 1MB (engine.go:344-362)
     start_background: bool = True
 
 
@@ -94,13 +113,11 @@ class IndexHandle:
 
 
 class Engine:
+    """open: load the checkpoint, open the lazy AOF, replay it, start the
+    background loop (engine.Open, engine.go:162-239)."""
+
     def __init__(self, config: Optional[EngineConfig] = None):
         self.config = config or EngineConfig()
-        if self.config.data_dir:
-            raise NotImplementedError(
-                "data_dir: the AOF journal and checkpoints "
-                "(persist/index_io) are not ported yet "
-                "(ROADMAP.md, queue 1, item 9)")
         self.device = devlib.resolve(self.config.device)
         self.indexes: dict[str, IndexHandle] = {}
         self.kv = KVStore()
@@ -109,7 +126,10 @@ class Engine:
         # `with self._lock` = exclusive write side; searches take
         # `self._lock.read()`
         self._lock = RWLock()
+        self._aof: Optional[aoflib.LazyAOFWriter] = None
         self._dirty = 0
+        self._last_snapshot = time.time()
+        self._aof_base_size = 0
         self._stop = threading.Event()
         self._bg: Optional[threading.Thread] = None
         self._opened = False
@@ -120,6 +140,17 @@ class Engine:
         with self._lock:
             if self._opened:
                 return self
+            if self.config.data_dir:
+                os.makedirs(self.config.data_dir, exist_ok=True)
+                self._load_checkpoint()
+                self._aof = aoflib.LazyAOFWriter(self._aof_path())
+                try:
+                    self._replay_aof()
+                except BaseException:
+                    self._aof.close()
+                    self._aof = None
+                    raise
+                self._aof_base_size = self._aof.size()
             if self.config.start_background:
                 self._stop.clear()
                 self._bg = threading.Thread(target=self._background,
@@ -134,7 +165,28 @@ class Engine:
             self._bg.join(timeout=5.0)
             self._bg = None
         with self._lock:
-            self._opened = False
+            try:
+                self.save_snapshot()
+            finally:
+                if self._aof:
+                    self._aof.close()
+                    self._aof = None
+                self._opened = False
+
+    def _aof_path(self) -> str:
+        return os.path.join(self.config.data_dir, "journal.aof")
+
+    def _ckpt_root(self) -> str:
+        return os.path.join(self.config.data_dir, "checkpoints")
+
+    # -------------------------------------------------------------- journal
+
+    def _journal(self, *parts: bytes | str) -> None:
+        """AOF-before-RAM (ops.go:349-364): every mutation is framed and
+        handed to the lazy writer before the in-memory apply."""
+        if self._aof is not None:
+            self._aof.write(format_command(*parts))
+        self._dirty += 1
 
     # -------------------------------------------------------- index mgmt
 
@@ -144,7 +196,9 @@ class Engine:
                      language: str = "english", kind: str = "hnsw",
                      seed: int = 42, shards: int = 0,
                      serve_mode: str = "auto",
-                     serve_proj_dim: Optional[int] = None) -> None:
+                     serve_proj_dim: Optional[int] = None,
+                     serve_proj_rerank: int = 128,
+                     _journal: bool = True) -> None:
         """VCREATE. Duplicate names are an error. Kinds "hnsw" (serve_mode
         "auto", "scan" or "beam") and "flat" are ported."""
         with self._lock:
@@ -167,21 +221,34 @@ class Engine:
             cfg = HNSWConfig(m=m, ef_construction=ef_construction,
                              ef_search=ef_search, seed=seed,
                              serve_mode=serve_mode,
-                             serve_proj_dim=serve_proj_dim or 0)
+                             serve_proj_dim=serve_proj_dim or 0,
+                             serve_proj_rerank=serve_proj_rerank)
             if kind == "hnsw":
                 check_supported(cfg)
             # the dimension is fixed by the first add
-            self.indexes[name] = IndexHandle(
-                name, _LazyIndex(metric, precision, cfg, kind=kind),
-                language=language)
-            self._dirty += 1
+            lazy = _LazyIndex(metric, precision, cfg, kind=kind)
+            if _journal:
+                self._journal("VCREATE", name, metric, precision,
+                              json.dumps({"m": m,
+                                          "ef_construction": ef_construction,
+                                          "ef_search": ef_search,
+                                          "language": language,
+                                          "seed": seed,
+                                          "kind": kind,
+                                          "shards": shards,
+                                          "serve_mode": serve_mode,
+                                          "serve_proj_dim": serve_proj_dim,
+                                          "serve_proj_rerank":
+                                              serve_proj_rerank}))
+            self.indexes[name] = IndexHandle(name, lazy, language=language)
 
-    def drop_index(self, name: str) -> None:
+    def drop_index(self, name: str, _journal: bool = True) -> None:
         with self._lock:
             if name not in self.indexes:
                 raise KeyError(f"no such index: {name}")
+            if _journal:
+                self._journal("VDROP", name)
             del self.indexes[name]
-            self._dirty += 1
 
     def list_indexes(self) -> list[str]:
         return sorted(self.indexes)
@@ -209,17 +276,24 @@ class Engine:
                                "misses": h.mask_misses},
             }
 
-    def configure_index(self, name: str, config: dict[str, Any]) -> None:
+    def configure_index(self, name: str, config: dict[str, Any],
+                        _journal: bool = True) -> None:
         """VCONFIG: runtime settings of an index: memory / decay, auto-link
         rules, and the index knobs ef_search, scan_exact, scan_precision,
-        int8_symmetric, serve_mode and max_unlinked. Not journaled
-        (persistence is not ported)."""
+        int8_symmetric, serve_mode, max_unlinked, serve_proj_dim and
+        serve_proj_rerank. Changing serve_proj_dim drops the projection's
+        basis and arena (derived data, refit at the next search)."""
         h = self._handle(name)
-        if config.get("serve_proj_dim") or "serve_proj_rerank" in config:
-            raise NotImplementedError(
-                "serve_proj_dim > 0 / serve_proj_rerank (PCA-projected "
-                "pass A) is not ported yet (ROADMAP.md, queue 1, item 7)")
         with self._lock:
+            icfg = getattr(h.index, "config", None)
+            if icfg is not None:
+                if config.get("scan_precision", "high") not in ("high",
+                                                                "fast"):
+                    raise ValueError("scan_precision must be high|fast")
+                if config.get("serve_mode", "auto") not in SERVE_MODES:
+                    raise ValueError("serve_mode must be auto|scan|beam")
+            if _journal:
+                self._journal("VCONFIG", name, json.dumps(config))
             mem = config.get("memory")
             if mem:
                 layers = {k: fusion.LayerConfig(**v)
@@ -234,26 +308,27 @@ class Engine:
             if "auto_links" in config:
                 h.auto_links = [AutoLinkRule(**r)
                                 for r in config["auto_links"]]
-            if hasattr(h.index, "config"):
-                icfg = h.index.config
-                if "ef_search" in config:
-                    icfg.ef_search = int(config["ef_search"])
-                if "scan_exact" in config:
-                    icfg.scan_exact = bool(config["scan_exact"])
-                if "scan_precision" in config:
-                    if config["scan_precision"] not in ("high", "fast"):
-                        raise ValueError("scan_precision must be high|fast")
-                    icfg.scan_precision = config["scan_precision"]
-                if "int8_symmetric" in config:
-                    icfg.int8_symmetric = bool(config["int8_symmetric"])
-                if "serve_mode" in config:
-                    if config["serve_mode"] not in ("auto", "scan", "beam"):
-                        raise ValueError(
-                            "serve_mode must be auto|scan|beam")
-                    icfg.serve_mode = config["serve_mode"]
-                if "max_unlinked" in config:
-                    icfg.max_unlinked = max(0, int(config["max_unlinked"]))
-            self._dirty += 1
+            if icfg is None:
+                return
+            if "ef_search" in config:
+                icfg.ef_search = int(config["ef_search"])
+            if "scan_exact" in config:
+                icfg.scan_exact = bool(config["scan_exact"])
+            if "scan_precision" in config:
+                icfg.scan_precision = config["scan_precision"]
+            if "int8_symmetric" in config:
+                icfg.int8_symmetric = bool(config["int8_symmetric"])
+            if "serve_mode" in config:
+                icfg.serve_mode = config["serve_mode"]
+            if "max_unlinked" in config:
+                icfg.max_unlinked = max(0, int(config["max_unlinked"]))
+            if "serve_proj_dim" in config:
+                icfg.serve_proj_dim = max(0, int(config["serve_proj_dim"]))
+                if isinstance(h.index, HNSWIndex):
+                    h.index.invalidate_projection()
+            if "serve_proj_rerank" in config:
+                icfg.serve_proj_rerank = max(
+                    1, int(config["serve_proj_rerank"]))
 
     def _handle(self, name: str) -> IndexHandle:
         h = self.indexes.get(name)
@@ -264,17 +339,23 @@ class Engine:
     # ----------------------------------------------------------- write path
 
     def add(self, index: str, ext_id: str, vector: Sequence[float],
-            metadata: Optional[dict[str, Any]] = None) -> None:
-        """VADD: index insert -> metadata -> event."""
+            metadata: Optional[dict[str, Any]] = None,
+            _journal: bool = True) -> None:
+        """VADD (ops.go:268): validate -> journal -> index insert ->
+        metadata -> auto-links -> event."""
         h = self._handle(index)
         vec = np.asarray(vector, np.float32).reshape(-1)
         meta = dict(metadata or {})
         with self._lock:
             self._ensure_materialized(h, vec.shape[-1])
+            # validated before the journal, so a rejected op never lands
+            # in the AOF
             self._validate_add(h, [ext_id], vec[None, :])
             self._stamp_memory(h, meta)
+            if _journal:
+                self._journal("VADD", index, ext_id, vec.tobytes(),
+                              json.dumps(meta) if meta else "")
             h.index.add(ext_id, vec)
-            self._dirty += 1
             if meta:
                 row = self._row_of(h, ext_id)
                 if row is not None:
@@ -285,8 +366,9 @@ class Engine:
     def add_batch(self, index: str, ext_ids: Sequence[str],
                   vectors: np.ndarray,
                   metadatas: Optional[Sequence[Optional[dict]]] = None,
-                  fast: bool = False) -> None:
-        """VAddBatch: bulk device build, then per-item metadata."""
+                  fast: bool = False, _journal: bool = True) -> None:
+        """VAddBatch (ops.go:1384): one journal frame per vector first,
+        then the bulk device build, then per-item metadata."""
         h = self._handle(index)
         vectors = np.asarray(vectors, np.float32)
         metas = [dict(m or {}) for m in
@@ -295,10 +377,12 @@ class Engine:
             if len(ext_ids):
                 self._ensure_materialized(h, vectors.shape[-1])
                 self._validate_add(h, ext_ids, vectors)
-            for m in metas:
+            for j, (e, m) in enumerate(zip(ext_ids, metas)):
                 self._stamp_memory(h, m)
+                if _journal:
+                    self._journal("VADD", index, e, vectors[j].tobytes(),
+                                  json.dumps(m) if m else "")
             h.index.add_batch(ext_ids, vectors, fast=fast)
-            self._dirty += len(ext_ids)
             pairs = [(r, m) for e, m in zip(ext_ids, metas) if m
                      and (r := self._row_of(h, e)) is not None]
             if pairs:
@@ -311,38 +395,43 @@ class Engine:
                      vectors: np.ndarray,
                      metadatas: Optional[Sequence[Optional[dict]]] = None
                      ) -> None:
-        """VImport: a fast graph build, then a full refine (no journal;
-        persistence is not ported)."""
+        """VImport (ops.go:1503): bypasses the journal; a fast graph build,
+        a full refine, then a forced snapshot."""
         h = self._handle(index)
-        self.add_batch(index, ext_ids, vectors, metadatas, fast=True)
+        self.add_batch(index, ext_ids, vectors, metadatas, fast=True,
+                       _journal=False)
         with self._lock:
             if hasattr(h.index, "turbo_refine"):
                 h.index.turbo_refine()
+        if self.config.data_dir:
+            self.save_snapshot()
 
-    def delete(self, index: str, ext_id: str) -> bool:
+    def delete(self, index: str, ext_id: str, _journal: bool = True) -> bool:
         """VDEL: soft delete + metadata and graph-node removal."""
         h = self._handle(index)
         with self._lock:
             row = self._row_of(h, ext_id)
+            if _journal:
+                self._journal("VDEL", index, ext_id)
             ok = h.index.delete(ext_id)
             if ok and row is not None:
                 h.meta.remove(row)
                 self.graph.drop_node(f"{index}/{ext_id}")
-            self._dirty += 1
         if ok:
             self.events.emit(Event("vector.delete", index, ext_id))
         return ok
 
     def update_metadata(self, index: str, ext_id: str,
-                        patch: dict[str, Any]) -> None:
+                        patch: dict[str, Any], _journal: bool = True) -> None:
         """VMETA: merge a metadata patch."""
         h = self._handle(index)
         with self._lock:
             row = self._row_of(h, ext_id)
             if row is None:
                 raise KeyError(f"no such id: {ext_id}")
+            if _journal:
+                self._journal("VMETA", index, ext_id, json.dumps(patch))
             h.meta.update(row, patch)
-            self._dirty += 1
         self.events.emit(Event("vector.update", index, ext_id))
 
     def get(self, index: str, ext_id: str) -> dict[str, Any]:
@@ -352,7 +441,8 @@ class Engine:
             raise KeyError(f"no such id: {ext_id}")
         return {"id": ext_id, "metadata": h.meta.get(row) or {}}
 
-    def reinforce(self, index: str, ext_id: str) -> None:
+    def reinforce(self, index: str, ext_id: str,
+                  _journal: bool = True) -> None:
         """VReinforce (ops.go:697): bump _last_accessed / _access_count.
         The decay columns mark the row dirty, so the next decayed search
         refreshes the device mirror in place."""
@@ -362,12 +452,14 @@ class Engine:
             if row is None:
                 raise KeyError(f"no such id: {ext_id}")
             meta = h.meta.get(row) or {}
-            h.meta.update(row, {
+            patch = {
                 fusion.ACCESSED_KEY: time.time(),
                 fusion.ACCESS_COUNT_KEY:
                     int(meta.get(fusion.ACCESS_COUNT_KEY) or 0) + 1,
-            })
-            self._dirty += 1
+            }
+            if _journal:
+                self._journal("VMETA", index, ext_id, json.dumps(patch))
+            h.meta.update(row, patch)
         self.events.emit(Event("vector.access", index, ext_id))
 
     def _validate_add(self, h: IndexHandle, ext_ids: Sequence[str],
@@ -424,9 +516,11 @@ class Engine:
                     if row < len(h.index.ids.row_to_ext) else None
                 if other is None or other == ext_id:
                     continue
-                self.link(h.name, ext_id, rule.relation, other)
+                self.link(h.name, ext_id, rule.relation, other,
+                          _journal=True)
                 if rule.bidirectional:
-                    self.link(h.name, other, rule.relation, ext_id)
+                    self.link(h.name, other, rule.relation, ext_id,
+                              _journal=True)
                 linked += 1
                 if linked >= rule.max_links:
                     break
@@ -892,28 +986,36 @@ class Engine:
 
     def link(self, index: str, source: str, relation: str, target: str, *,
              weight: float = 1.0, props: Optional[dict] = None,
-             inverse: Optional[str] = None,
+             inverse: Optional[str] = None, _journal: bool = True,
              created_at: Optional[float] = None) -> None:
-        """VLink; node ids are namespaced index/node."""
+        """VLink (GLINK); node ids are namespaced index/node."""
         src, dst = f"{index}/{source}", f"{index}/{target}"
         now = created_at if created_at is not None else time.time()
         with self._lock:
+            if _journal:
+                self._journal("GLINK", src, relation, dst, str(weight),
+                              json.dumps(props or {}), str(now))
             self.graph.add_edge(src, relation, dst, weight=weight,
                                 props=props, created_at=now)
             if inverse:
+                if _journal:
+                    self._journal("GLINK", dst, inverse, src, str(weight),
+                                  json.dumps(props or {}), str(now))
                 self.graph.add_edge(dst, inverse, src, weight=weight,
                                     props=props, created_at=now)
-            self._dirty += 1
         self.events.emit(Event("edge.create", index, source,
                                {"relation": relation, "target": target}))
 
     def unlink(self, index: str, source: str, relation: str, target: str,
+               _journal: bool = True,
                deleted_at: Optional[float] = None) -> bool:
+        """GUNLINK."""
         src, dst = f"{index}/{source}", f"{index}/{target}"
         now = deleted_at if deleted_at is not None else time.time()
         with self._lock:
+            if _journal:
+                self._journal("GUNLINK", src, relation, dst, str(now))
             ok = self.graph.remove_edge(src, relation, dst, deleted_at=now)
-            self._dirty += 1
         if ok:
             self.events.emit(Event("edge.delete", index, source,
                                    {"relation": relation, "target": target}))
@@ -1046,17 +1148,22 @@ class Engine:
 
     # ------------------------------------------------------------------- KV
 
-    def kv_set(self, key: str, value: bytes | str) -> None:
+    def kv_set(self, key: str, value: bytes | str,
+               _journal: bool = True) -> None:
         with self._lock:
+            if _journal:
+                self._journal("SET", key,
+                              value if isinstance(value, (bytes, bytearray))
+                              else value.encode())
             self.kv.set(key, value)
-            self._dirty += 1
 
     def kv_get(self, key: str) -> Optional[bytes]:
         return self.kv.get(key)
 
-    def kv_delete(self, key: str) -> bool:
+    def kv_delete(self, key: str, _journal: bool = True) -> bool:
         with self._lock:
-            self._dirty += 1
+            if _journal:
+                self._journal("DEL", key)
             return self.kv.delete(key)
 
     def kv_scan(self, prefix: str = "") -> list[tuple[str, bytes]]:
@@ -1083,11 +1190,26 @@ class Engine:
         return out
 
     def _background(self) -> None:
-        """Maintenance tick and graph vacuum."""
+        """engine.go:277-320: the snapshot check (dirty ops or age), the
+        AOF rewrite (a snapshot, once the journal has grown by
+        aof_rewrite_growth past its size after the last one), the
+        maintenance tick and the graph vacuum. The AOF's own thread
+        flushes it."""
         last_maint = last_vacuum = time.time()
         while not self._stop.wait(1.0):
             now = time.time()
             try:
+                if self.config.data_dir and self._dirty and (
+                        self._dirty >= self.config.snapshot_dirty_threshold
+                        or now - self._last_snapshot
+                        >= self.config.snapshot_interval):
+                    self.save_snapshot()
+                if self._aof is not None:
+                    size = self._aof.size()
+                    if (size > self.config.aof_rewrite_min_bytes
+                            and size > self._aof_base_size
+                            * (1 + self.config.aof_rewrite_growth)):
+                        self.save_snapshot()   # truncates the journal
                 if now - last_maint >= self.config.maintenance_interval:
                     last_maint = now
                     self.run_maintenance()
@@ -1097,6 +1219,263 @@ class Engine:
                         self.graph.vacuum(now - 30 * 24 * 3600)
             except Exception:   # pragma: no cover - keep the loop alive
                 log.exception("background maintenance error")
+
+    # --------------------------------------------------------- checkpointing
+
+    def save_snapshot(self) -> Optional[str]:
+        """SaveSnapshot (recovery.go:459-558): divert journal writes to the
+        shadow buffer, write the checkpoint, truncate the journal, then
+        append the shadow's frames. Returns the generation's path. An
+        engine that has not opened its data dir writes nothing: it would
+        checkpoint an empty state over the data on disk."""
+        if not self.config.data_dir or not self._opened:
+            return None
+        with self._lock:
+            if self._aof:
+                self._aof.begin_snapshot_mode()
+            try:
+                arrays, state = self._snapshot_state()
+                path = ckptlib.save(self._ckpt_root(), arrays, state)
+                if self._aof:
+                    self._aof.truncate()
+            finally:
+                if self._aof:
+                    self._aof.write_raw_frames(self._aof.end_snapshot_mode())
+            self._dirty = 0
+            self._last_snapshot = time.time()
+            self._aof_base_size = self._aof.size() if self._aof else 0
+        return path
+
+    def _snapshot_state(self) -> tuple[dict, dict]:
+        arrays: dict[str, Any] = {}
+        state: dict[str, Any] = {
+            "version": 1,
+            "kv": self.kv.items(),
+            "graph": _graph_to_state(self.graph),
+            "indexes": {},
+        }
+        for name, h in self.indexes.items():
+            idx = h.index
+            common = {"language": h.language,
+                      "memory": _memory_to_state(h.memory),
+                      "auto_links": [asdict(r) for r in h.auto_links]}
+            if isinstance(idx, _LazyIndex):
+                state["indexes"][name] = {
+                    "lazy": True, "metric": idx.metric,
+                    "precision": idx.precision,
+                    "config": asdict(idx.config),
+                    "kind": idx.kind, "shards": 0, **common}
+                continue
+            st = index_io.dump_index(idx, name, arrays)
+            st.update({"lazy": False, **common,
+                       "metadata": {int(r): m
+                                    for r, m in h.meta.direct.items()}})
+            state["indexes"][name] = st
+        return arrays, state
+
+    def _load_checkpoint(self) -> None:
+        loaded = ckptlib.load(self._ckpt_root())
+        if loaded is None:
+            return
+        arrays, state = loaded
+        for k, v in (state.get("kv") or {}).items():
+            self.kv.set(k, v)
+        _graph_from_state(self.graph, state.get("graph") or {})
+        for name, st in (state.get("indexes") or {}).items():
+            if st.get("lazy"):
+                kind = st.get("kind", "hnsw")
+                if kind == "host":
+                    raise NotImplementedError(
+                        f"checkpoint index {name!r} is of kind 'host' "
+                        "(index/hostarena), which is not ported yet "
+                        "(ROADMAP.md, queue 1, item 10)")
+                if int(st.get("shards", 0)) > 1:
+                    log.warning("checkpoint: index %s was created with "
+                                "shards=%s; it opens unsharded", name,
+                                st["shards"])
+                cfg = index_io.cfg_from(st) if "config" in st \
+                    else HNSWConfig()
+                h = IndexHandle(name, _LazyIndex(st["metric"],
+                                                 st["precision"], cfg,
+                                                 kind=kind),
+                                language=st.get("language", "english"))
+            else:
+                h = IndexHandle(name, index_io.load_index(
+                    st, arrays, name, device=self.device),
+                    language=st.get("language", "english"))
+                metas = st.get("metadata") or {}
+                if metas and st.get("kind") == "sharded":
+                    # keyed by the sharded index's global rows; the merged
+                    # index numbered its rows anew
+                    ext = {g: e for e, g in st["ext_to_gid"].items()}
+                    metas = {h.index.ids.get(ext.get(int(g))): m
+                             for g, m in metas.items()}
+                    metas.pop(None, None)
+                if metas:
+                    h.meta.set_batch([int(r) for r in metas],
+                                     list(metas.values()))
+            h.memory = _memory_from_state(st.get("memory") or {})
+            h.auto_links = [AutoLinkRule(**r)
+                            for r in st.get("auto_links") or []]
+            self.indexes[name] = h
+
+    # --------------------------------------------------------------- replay
+
+    def _replay_aof(self) -> None:
+        """replayAOF (recovery.go:78-457): read every frame, compact in
+        memory (a later op on a key overwrites an earlier one), then apply
+        in bulk: KV, then per index its creation, adds (one add_batch),
+        metadata, deletes, metadata patches of older rows and its last
+        VCONFIG, then the graph's links in journal order."""
+        corrupt: list[int] = []
+        kv_data: dict[str, Optional[bytes]] = {}
+        idx_ops: dict[str, dict[str, Any]] = {}
+        order: list[tuple] = []
+        for _, payload in aoflib.read_frames(self._aof_path(),
+                                             on_corruption=corrupt.append):
+            try:
+                parts = parse_command(payload)
+            except ValueError:
+                continue
+            if not parts:
+                continue
+            cmd = parts[0].decode().upper()
+            try:
+                _compact_one(cmd, parts, kv_data, idx_ops, order)
+            except (ValueError, IndexError, TypeError):
+                log.warning("skipping bad AOF command %s", cmd)
+        if corrupt:
+            log.warning("AOF resync: %d corrupt region(s) skipped",
+                        len(corrupt))
+        for k, v in kv_data.items():
+            if v is None:
+                self.kv.delete(k)
+            else:
+                self.kv.set(k, v)
+        for name, ops in idx_ops.items():
+            if ops.get("dropped"):
+                self.indexes.pop(name, None)
+                continue
+            if name not in self.indexes and ops.get("create"):
+                self._replay_create(name, ops["create"])
+            if name not in self.indexes:
+                continue
+            self._replay_entries(name, ops)
+        for op in order:
+            if op[0] == "GLINK":
+                _, src, rel, dst, w, props, ts = op
+                self.graph.add_edge(src, rel, dst, weight=w, props=props,
+                                    created_at=ts)
+            else:
+                _, src, rel, dst, ts = op
+                self.graph.remove_edge(src, rel, dst, deleted_at=ts)
+
+    def _replay_create(self, name: str, c: dict[str, Any]) -> None:
+        # a journal written by a newer build may carry config keys this
+        # one does not know: drop them with a warning
+        known = set(inspect.signature(self.create_index).parameters)
+        unknown = set(c) - known
+        if unknown:
+            log.warning("AOF replay: ignoring unknown index config keys "
+                        "%s for %s", sorted(unknown), name)
+            c = {k: v for k, v in c.items() if k in known}
+        if int(c.get("shards", 0)) > 1:
+            # journaled with shards: recreated unsharded so the database
+            # opens (the journal carries the raw vectors, so no data is
+            # lost), as the JAX package does on a smaller mesh
+            log.warning("AOF replay: index %s journaled with shards=%s; "
+                        "recreating it unsharded", name, c["shards"])
+            c = dict(c, shards=0)
+        self.create_index(name, _journal=False, **c)
+
+    def _replay_entries(self, name: str, ops: dict[str, Any]) -> None:
+        entries = ops.get("entries") or {}
+        alive = {e: v for e, v in entries.items() if v is not None}
+        h = self.indexes[name]
+        todo = {e: v for e, v in alive.items() if self._row_of(h, e) is None}
+        if todo:
+            # per-entry shape tolerance: a wrong-dim frame must not stop
+            # the database from opening
+            bufs = {e: np.frombuffer(v[0], np.float32)
+                    for e, v in todo.items()}
+            dim = h.index.dim or Counter(
+                v.size for v in bufs.values()).most_common(1)[0][0]
+            ids = [e for e in todo if bufs[e].size == dim]
+            if len(ids) < len(todo):
+                log.warning("AOF replay: skipping %d wrong-dim entries in %s",
+                            len(todo) - len(ids), name)
+            if ids:
+                try:
+                    self.add_batch(name, ids,
+                                   np.stack([bufs[e] for e in ids]),
+                                   [todo[e][1] for e in ids],
+                                   _journal=False)
+                except Exception:
+                    log.exception("AOF replay: bulk apply failed for %s",
+                                  name)
+        for e, v in alive.items():
+            if v[1] and e not in todo:
+                row = self._row_of(h, e)
+                if row is not None:
+                    h.meta.update(row, v[1])
+        for e, v in entries.items():
+            if v is None:
+                self.delete(name, e, _journal=False)
+        # VMETA patches of rows that predate this journal
+        for e, patch in ops.get("meta_patches") or []:
+            row = self._row_of(h, e)
+            if row is not None:
+                h.meta.update(row, patch)
+        if ops.get("config"):
+            self.configure_index(name, ops["config"], _journal=False)
+
+
+def _compact_one(cmd: str, parts: list[bytes], kv_data, idx_ops,
+                 order) -> None:
+    """Fold one journaled command into the replay's compacted state."""
+    def dec(i):
+        return parts[i].decode()
+
+    if cmd == "SET":
+        kv_data[dec(1)] = parts[2]
+    elif cmd == "DEL":
+        kv_data[dec(1)] = None
+    elif cmd == "VCREATE":
+        # VCREATE name metric precision config_json
+        cfg = json.loads(dec(4)) if len(parts) > 4 and parts[4] else {}
+        idx_ops.setdefault(dec(1), {})["create"] = dict(
+            metric=dec(2), precision=dec(3), **cfg)
+    elif cmd == "VDROP":
+        idx_ops.setdefault(dec(1), {})["dropped"] = True
+    elif cmd == "VADD":
+        # VADD index id vec_bytes meta_json
+        meta = json.loads(dec(4)) if len(parts) > 4 and parts[4] else None
+        idx_ops.setdefault(dec(1), {}).setdefault(
+            "entries", {})[dec(2)] = (parts[3], meta)
+    elif cmd == "VDEL":
+        idx_ops.setdefault(dec(1), {}).setdefault(
+            "entries", {})[dec(2)] = None
+    elif cmd == "VMETA":
+        ops = idx_ops.setdefault(dec(1), {})
+        cur = ops.setdefault("entries", {}).get(dec(2))
+        patch = json.loads(dec(3))
+        if cur is not None:
+            merged = dict(cur[1] or {})
+            merged.update(patch)
+            ops["entries"][dec(2)] = (cur[0], merged)
+        else:
+            ops.setdefault("meta_patches", []).append((dec(2), patch))
+    elif cmd == "VCONFIG":
+        # merged, not replaced: a later VCONFIG of other keys must not
+        # undo an earlier one (each key's last value wins, as when they
+        # were applied one by one)
+        idx_ops.setdefault(dec(1), {}).setdefault("config", {}).update(
+            json.loads(dec(2)))
+    elif cmd == "GLINK":
+        order.append(("GLINK", dec(1), dec(2), dec(3), float(dec(4)),
+                      json.loads(dec(5)), float(dec(6))))
+    elif cmd == "GUNLINK":
+        order.append(("GUNLINK", dec(1), dec(2), dec(3), float(dec(4))))
 
 
 class _LazyIndex:
@@ -1140,3 +1519,35 @@ def _is_zero(q: np.ndarray) -> bool:
 
 def _cap_of(idx) -> int:
     return getattr(idx, "_cap", len(idx))
+
+
+def _graph_to_state(g: KnowledgeGraph) -> dict:
+    return {node: {rel: [[e.target, e.created_at, e.deleted_at, e.weight,
+                          json.dumps(e.props)] for e in edges]
+                   for rel, edges in rels.items()}
+            for node, rels in g.out.items()}
+
+
+def _graph_from_state(g: KnowledgeGraph, state: dict) -> None:
+    for node, rels in state.items():
+        for rel, edges in rels.items():
+            for t, c, dl, w, props in edges:
+                e = Edge(t, c, dl, w, json.loads(props))
+                g.out.setdefault(node, {}).setdefault(rel, []).append(e)
+                g.inc.setdefault(t, {}).setdefault(rel, []).append(
+                    ReverseEdge(node, c, dl))
+
+
+def _memory_to_state(m: fusion.MemoryConfig) -> dict:
+    return {"enabled": m.enabled, "decay_half_life": m.decay_half_life,
+            "decay_model": m.decay_model,
+            "layers": {k: asdict(v) for k, v in m.layers.items()}}
+
+
+def _memory_from_state(st: dict) -> fusion.MemoryConfig:
+    return fusion.MemoryConfig(
+        enabled=bool(st.get("enabled", False)),
+        decay_half_life=float(st.get("decay_half_life", 30 * 24 * 3600.0)),
+        decay_model=st.get("decay_model", "exponential"),
+        layers={k: fusion.LayerConfig(**v)
+                for k, v in (st.get("layers") or {}).items()})

@@ -10,9 +10,10 @@ serve_mode: "auto" (the default) links the graph on every insert and
 serves queries from the fused scan (ops/scan.py); "scan" never links;
 "beam" serves from the graph's beam search.
 
-Not ported yet, and refused with NotImplementedError rather than served
-some other way: the PCA-projected pass A (`serve_proj_dim`),
-`compress_serving` and `optimize_layout` (ROADMAP.md, queue 1, item 7).
+`serve_proj_dim` = p > 0 serves the scan from a cached [cap, p] bf16 PCA
+projection of the arena, then re-ranks serve_proj_rerank candidates in
+full dimension. `compress_serving` narrows an f32 arena to bf16 or int8
+after a bulk build; `optimize_layout` relabels rows in BFS order.
 """
 
 from __future__ import annotations
@@ -59,7 +60,10 @@ class HNSWConfig:
     scan_exact: bool = False         # exact pass-A precision forms
     scan_precision: str = "high"     # "fast": single bf16 pass, no re-rank
     int8_symmetric: bool = False     # int8 arenas: quantize the query too
-    serve_proj_dim: int = 0          # > 0 is refused (check_supported)
+    # p > 0: pass A over a [cap, p] bf16 PCA projection of an f32 or bf16
+    # arena, then an exact re-rank of serve_proj_rerank candidates
+    serve_proj_dim: int = 0
+    serve_proj_rerank: int = 128
 
     def resolved_ml(self) -> float:
         return self.ml if self.ml > 0 else 1.0 / math.log(max(self.m, 2))
@@ -69,14 +73,9 @@ SERVE_MODES = ("auto", "scan", "beam")
 
 
 def check_supported(config: HNSWConfig) -> None:
-    """Refuse the options whose code paths are not ported yet."""
     if config.serve_mode not in SERVE_MODES:
         raise ValueError(f"serve_mode must be one of {SERVE_MODES}, "
                          f"not {config.serve_mode!r}")
-    if config.serve_proj_dim:
-        raise NotImplementedError(
-            "serve_proj_dim > 0 (PCA-projected pass A) is not ported yet "
-            "(ROADMAP.md, queue 1, item 7)")
 
 
 def encode_block(v32: torch.Tensor, *, metric: str, out_dtype: torch.dtype,
@@ -127,6 +126,9 @@ class HNSWIndex:
         self.ids = IDMap()
         self.quantizer = quant.empty_state(self.device)
         self.rng = np.random.default_rng(self.config.seed)
+        # counts assignments of `state`: the projected arena is cached per
+        # version
+        self._version = 0
         self._cap = self.MIN_CAP
         self._ucap = self._ucap_for(self.MIN_CAP)
         self.state = K.init_state(
@@ -147,6 +149,11 @@ class HNSWIndex:
         self._pending: list[tuple[int, np.ndarray]] = []
         self._pending_rows: set[int] = set()
         self._unlinked: list[tuple[int, int]] = []   # (row, level)
+        # serve_proj_dim: the PCA basis [D, p] (fit once) and the
+        # projected arena (rebuilt per state version; never persisted)
+        self._proj_basis: Optional[torch.Tensor] = None
+        self._proj: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+        self._proj_version = -1
 
     @classmethod
     def from_reference_state(cls, arrays: Mapping[str, np.ndarray],
@@ -158,12 +165,13 @@ class HNSWIndex:
         """A port index over a state carried across from the JAX index.
 
         `arrays`: the reference's GraphState leaves by field name, as numpy
-        (`jax.device_get(idx.state)._asdict()`). `ids`: its IDMap contents,
-        {"row_to_ext": [...], "free": [...]}. `mirrors`: its host mirrors,
-        any of deleted_rows, max_level, up_free, up_next (the next unused
-        upper slot), unlinked (the (row, level) backlog), refine_cursor,
-        needs_refine, abs_max (the trained quantizer's), serve_quantized
-        and rng_state (`idx.rng.bit_generator.state`, so later adds sample
+        (`jax.device_get(idx.state)._asdict()`) or tensors. `ids`: its
+        IDMap contents, {"row_to_ext": [...], "free": [...]}, and
+        optionally "ext_to_row" (else the inverse of row_to_ext).
+        `mirrors`: its host mirrors, any of deleted_rows, max_level,
+        up_free, up_next (the next unused upper slot), unlinked (the
+        (row, level) backlog), refine_cursor, needs_refine, abs_max (the
+        trained quantizer's), serve_quantized and rng_state (`idx.rng.bit_generator.state`, so later adds sample
         the same levels). The reference index must be settled
         (`settle_for_serving()`): pending rows live only in its host
         memory."""
@@ -175,8 +183,9 @@ class HNSWIndex:
         idx._cap = idx.state.vectors.shape[0]
         idx._ucap = idx.state.up_node.shape[0]
         idx.ids.row_to_ext = list(ids["row_to_ext"])
-        idx.ids.ext_to_row = {e: r for r, e in enumerate(idx.ids.row_to_ext)
-                              if e is not None}
+        idx.ids.ext_to_row = dict(ids["ext_to_row"]) if "ext_to_row" in ids \
+            else {e: r for r, e in enumerate(idx.ids.row_to_ext)
+                  if e is not None}
         idx.ids.free = [int(r) for r in ids.get("free", ())]
         idx.ids.rebuild_mask()
         m = mirrors or {}
@@ -196,6 +205,45 @@ class HNSWIndex:
         return idx
 
     # -- basic accessors -------------------------------------------------
+
+    @property
+    def state(self) -> K.GraphState:
+        return self._state
+
+    @state.setter
+    def state(self, st: K.GraphState) -> None:
+        self._state = st
+        self._version += 1
+
+    def invalidate_projection(self) -> None:
+        """Drop the PCA basis and the projected arena (serve_proj_dim
+        changed): both are derived data, refit at the next search."""
+        self._proj_basis = None
+        self._proj = None
+        self._proj_version = -1
+
+    def _proj_arena(self) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+        """([cap, p] bf16 projected arena, [cap] f32 projected norms) for
+        the serve_proj_dim scan, or None where it does not apply (p = 0,
+        p >= D, an int8 arena). One [cap, D] x [D, p] product per state
+        version. The basis is the top-p PCA directions of the first
+        (at most 65,536) staged rows, fit once: projections under an
+        orthonormal basis lower-bound true distances, and the full-dim
+        re-rank restores the order."""
+        p = self.config.serve_proj_dim
+        if not p or p >= self.dim or self.state.vectors.dtype == torch.int8:
+            return None
+        if self._proj is not None and self._proj_version == self._version:
+            return self._proj
+        if self._proj_basis is None:
+            used = max(self.ids.capacity_used, 1)
+            sample = self.state.vectors[:min(used, 65536)].float()
+            self._proj_basis = torch.from_numpy(quant.fit_pca_basis(
+                sample.cpu().numpy(), p)).to(self.device)
+        P = self.state.vectors.float() @ self._proj_basis
+        self._proj = (P.to(torch.bfloat16), torch.sum(P * P, dim=-1))
+        self._proj_version = self._version
+        return self._proj
 
     def __len__(self) -> int:
         return len(self.ids)
@@ -665,7 +713,8 @@ class HNSWIndex:
     def _scan_search_device(self, q, qn, B: int, k: int, allow):
         """Pad the batch to a power of two (>= 16, >= 32 for int8), chunk
         it so pass A's [B, cap/G] output stays under
-        SCAN_INTERMEDIATE_BYTES, and fetch kf >= 32 candidates."""
+        SCAN_INTERMEDIATE_BYTES, and fetch kf >= 32 candidates (or take
+        the projected read, `_proj_search`)."""
         min_b = 32 if self.state.vectors.dtype == torch.int8 else 16
         Bp = min_b
         while Bp < B:
@@ -684,6 +733,10 @@ class HNSWIndex:
         if Bp != B:
             q = torch.cat([q, q.new_zeros((Bp - B, q.shape[1]))])
             qn = torch.cat([qn, qn.new_zeros(Bp - B)])
+        proj = None if self.config.scan_exact else self._proj_arena()
+        if proj is not None:
+            d, rows = self._proj_search(proj, q, qn, k, allow)
+            return d[:B, :k], rows[:B, :k]
         kf = 32
         while kf < k:
             kf *= 2
@@ -696,15 +749,115 @@ class HNSWIndex:
             quantum=self._quantum())
         return d[:B, :k], rows[:B, :k].int()
 
+    def _proj_search(self, proj, q, qn, k: int, allow):
+        """The projected read: pass A's bf16 form over the [cap, p]
+        projection picks C = max(serve_proj_rerank, 2k) candidates (at
+        most cap / G), gather-distance re-ranks them in full dimension,
+        then a stable sort. (d [Bp, C] ascending, rows [Bp, C] int32, -1
+        where d is inf)."""
+        Pa, pn = proj
+        qp = (q.float() @ self._proj_basis).to(torch.bfloat16)
+        C = min(max(self.config.serve_proj_rerank, 2 * k),
+                self._cap // scanlib.g_for(self._cap))
+        _, rows = scanlib.scan_search(
+            Pa, pn, self.state.levels, self.state.deleted, allow, qp,
+            torch.zeros(q.shape[0], device=q.device), C, metric=self.metric,
+            mode="approx", fast=True)
+        d = dist.gathered(self.state.vectors, rows, q, self.metric,
+                          corpus_norms=self.state.norms, query_norms=qn,
+                          quantum=self._quantum())
+        d = torch.where(rows < 0, scanlib.INF, d)
+        d, order = torch.sort(d, dim=1, stable=True)
+        rows = torch.gather(rows, 1, order)
+        rows = torch.where(torch.isinf(d), -1, rows)
+        return torch.clamp_min(d, 0.0), rows.int()
+
     def compress_serving(self, dtype: str = "bfloat16") -> None:
-        raise NotImplementedError(
-            "compress_serving is not ported yet (ROADMAP.md, queue 1, "
-            "item 7)")
+        """Narrow the stored vectors of a float32 index for serving after a
+        bulk build; the graph is kept, later inserts encode into the
+        narrowed arena. "bfloat16" keeps |x|^2 of the narrowed values for
+        L2. "int8": cosine takes per-row scales (quantize_rowwise); L2
+        trains the quantizer on the used rows and scores float queries
+        against the codes (asymmetric), or in the quantized domain with
+        int8_symmetric and on the beam, rescaled in search()."""
+        self._stage_pending()
+        if self.precision != dist.F32:
+            raise ValueError("compress_serving applies to float32 indexes")
+        vecs = self.state.vectors.float()
+        if dtype == "int8":
+            if self.metric == dist.COSINE:
+                codes, norms = quant.quantize_rowwise(vecs)
+            else:
+                used = max(self.ids.capacity_used, 1)
+                self.quantizer = quant.train(vecs[:used])
+                codes, norms = quant.quantize(self.quantizer, vecs)
+            self.state = self.state._replace(vectors=codes, norms=norms)
+            self._serve_quantized = True
+            return
+        target = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+        vecs = self.state.vectors.to(target)
+        norms = self.state.norms
+        if self.metric == dist.L2:
+            norms = torch.sum(vecs.float() ** 2, dim=-1)
+        self.state = self.state._replace(vectors=vecs, norms=norms)
 
     def optimize_layout(self) -> None:
-        raise NotImplementedError(
-            "optimize_layout is not ported yet (ROADMAP.md, queue 1, "
-            "item 7)")
+        """Relabel rows in BFS order from the entry point over the level-0
+        graph (unreached rows keep their order at the end), so a beam's
+        neighbour reads land near each other. The BFS runs on the host,
+        the permutation is gathered on the device, and the id maps follow.
+        Skipped when rows were freed (slot reuse would interleave with the
+        order) and on an index without a graph."""
+        self.flush()
+        if self._deleted_rows or self.ids.free:
+            return
+        used = self.ids.capacity_used
+        entry = int(self.state.entry)
+        if used == 0 or entry < 0:
+            return
+        nbrs = self.state.nbrs[:used].cpu().numpy()
+        visited = np.zeros(used, bool)
+        order = np.empty(used, np.int32)
+        pos = 0
+        frontier = np.array([entry], np.int32)
+        visited[entry] = True
+        while frontier.size:
+            order[pos:pos + frontier.size] = frontier
+            pos += frontier.size
+            cand = nbrs[frontier].ravel()
+            cand = np.unique(cand[(cand >= 0) & (cand < used)])
+            cand = cand[~visited[cand]]
+            visited[cand] = True
+            frontier = cand
+        rest = np.nonzero(~visited)[0]
+        order[pos:pos + rest.size] = rest
+        old2new = np.empty(used, np.int32)
+        old2new[order] = np.arange(used, dtype=np.int32)
+
+        st = self.state
+        perm = torch.from_numpy(np.concatenate(
+            [order, np.arange(used, self._cap, dtype=np.int32)])).to(
+            self.device).long()
+        o2n = torch.from_numpy(old2new).to(self.device)
+
+        def remap(a: torch.Tensor) -> torch.Tensor:
+            ok = (a >= 0) & (a < used)
+            return torch.where(ok, o2n[a.clamp(0, used - 1).long()], a)
+
+        self.state = st._replace(
+            vectors=st.vectors[perm], norms=st.norms[perm],
+            nbrs=remap(st.nbrs)[perm], levels=st.levels[perm],
+            deleted=st.deleted[perm], up_of=st.up_of[perm],
+            up_node=remap(st.up_node), up_nbrs=remap(st.up_nbrs),
+            entry=torch.tensor(int(old2new[entry]), dtype=torch.int32,
+                               device=self.device))
+        row_to_ext: list[Optional[str]] = [None] * used
+        for old_row, ext in enumerate(self.ids.row_to_ext[:used]):
+            if ext is not None:
+                row_to_ext[int(old2new[old_row])] = ext
+                self.ids.ext_to_row[ext] = int(old2new[old_row])
+        self.ids.row_to_ext = row_to_ext
+        self.ids.rebuild_mask()      # new version: row-keyed caches refresh
 
     def get_vector(self, ext_id: str) -> Optional[np.ndarray]:
         """The stored vector (normalized for cosine, dequantized for

@@ -64,8 +64,9 @@ class Case(NamedTuple):
 
 GRAPH_SHAPES = ("build beam", "serving beam", "scan re-rank")
 # the graph's three gathered() shapes, the TPU scripts' own shape (all ids
-# valid: kernel 4; 40% -1: kernel 5), 200-byte rows (4-byte chunks) and long
-# rows (8 chunks a lane)
+# valid: kernel 4; 40% -1: kernel 5), 200-byte rows (4-byte chunks), long
+# rows (8 chunks a lane), and the projected read's full-dimension re-rank
+# (serve_proj_rerank 128 candidates of a 400k x 384 f32 collection)
 CASES = (
     Case("build beam", 512, 256, 128, 1 << 20, "f32", 0.4),
     Case("build beam", 512, 256, 128, 1 << 20, "bf16", 0.4),
@@ -77,6 +78,7 @@ CASES = (
     Case("TPU script, kernel 5", 4096, 256, 128, 1 << 20, "bf16", 0.4),
     Case("D=100 (4-byte chunks)", 512, 256, 100, 1 << 20, "bf16", 0.4),
     Case("D=768 (long rows)", 512, 256, 768, 1 << 18, "f32", 0.4),
+    Case("projected re-rank", 1024, 128, 384, 400_000, "f32", 0.0),
 )
 
 

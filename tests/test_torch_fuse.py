@@ -317,14 +317,30 @@ def test_decay_mirror_refreshes_in_place_on_reinforce():
     eng.close()
 
 
-@pytest.mark.parametrize("config", [{"serve_proj_dim": 8},
-                                    {"serve_proj_rerank": 64}])
+@pytest.mark.parametrize("config", [{"serve_proj_dim": 6},
+                                    {"serve_proj_rerank": 24}])
 def test_configure_index_refuses_projection(config):
-    eng = Engine(EngineConfig(device="cpu", start_background=False)).open()
-    eng.create_index("t", serve_mode="scan")
-    eng.add("t", "a", np.ones(4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.configure_index("t", config)
-    eng.configure_index("t", {"serve_proj_dim": 0, "ef_search": 12})
-    assert eng.index_info("t")["config"]["ef_search"] == 12
-    eng.close()
+    """Named when the projection was refused; now the reference's toggle
+    check (tests/test_engine.py::test_vconfig_serve_proj_toggle) on both
+    engines: VCONFIG turns the projected read on (the arena is built) and
+    off (dropped), or sets the re-rank width alone, and the top hit stays
+    the query's own row."""
+    rng = np.random.default_rng(0)
+    X = (rng.normal(size=(1500, 24)) * np.exp(-np.arange(24) / 5.0)
+         ).astype(np.float32)
+    for eng in (Engine(EngineConfig(device="cpu", start_background=False)),
+                JEngine(JEngineConfig(start_background=False))):
+        eng.open()
+        eng.create_index("t", serve_mode="scan")
+        eng.add_batch("t", [f"v{i}" for i in range(1500)], X)
+        idx = eng.indexes["t"].index
+        eng.configure_index("t", dict(config, ef_search=12))
+        assert (idx._proj_arena() is not None) == ("serve_proj_dim" in config)
+        assert idx.config.serve_proj_rerank == config.get(
+            "serve_proj_rerank", 128)
+        assert eng.search("t", X[5], k=1)[0][0]["id"] == "v5"
+        eng.configure_index("t", {"serve_proj_dim": 0})
+        assert idx._proj_arena() is None
+        assert eng.search("t", X[5], k=1)[0][0]["id"] == "v5"
+        assert eng.index_info("t")["config"]["ef_search"] == 12
+        eng.close()

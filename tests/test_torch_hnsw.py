@@ -163,25 +163,20 @@ def _linked_scan_index():
     return idx
 
 
-# (call, ported): the options the graph slice ported now run; the rest
-# still raise, naming their ROADMAP item
-@pytest.mark.parametrize("call,ported", [
-    (lambda: HNSWIndex(4, device="cpu"), True),                # "auto"
-    (lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="beam"),
-                       device="cpu"), True),
-    (lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan",
-                                            serve_proj_dim=2),
-                       device="cpu"), False),
-    (_linked_scan_index, True),
-    (lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan"),
-                       device="cpu").search(np.ones((1, 4)), 1,
-                                            mode="beam"), True),
+# options that once raised NotImplementedError (the serve modes the graph
+# slice ported, serve_proj_dim): each call runs
+@pytest.mark.parametrize("call", [
+    lambda: HNSWIndex(4, device="cpu"),                        # "auto"
+    lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="beam"),
+                      device="cpu"),
+    lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan",
+                                           serve_proj_dim=2),
+                      device="cpu"),
+    _linked_scan_index,
+    lambda: HNSWIndex(4, config=HNSWConfig(serve_mode="scan"),
+                      device="cpu").search(np.ones((1, 4)), 1, mode="beam"),
 ], ids=[f"call{i}" for i in range(5)])
-def test_deferred_options_raise(call, ported):
-    if not ported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-        return
+def test_deferred_options_raise(call):
     out = call()
     if isinstance(out, HNSWIndex):
         assert out.config.serve_mode in ("auto", "beam", "scan")
