@@ -19,8 +19,10 @@ Phases, one line each; any failure exits non-zero:
             each depth chunk), a bf16 arena at D=100 (200-byte rows),
             int8 D=384, asym exact D=384 and 768 (its three query pieces
             streamed), bf16 at the projected read's small depths D=8, 16,
-            24 and 32 (one k16 step at most; 16- to 64-byte rows); int8 x
-            int8 must be bit-equal; then an arena with
+            24 and 32 (one k16 step at most; 16- to 64-byte rows), the
+            host arena's projected mirror (form 5, an f32 query against
+            32-byte int8 rows, B=256 and 200); int8 x int8 must be
+            bit-equal; then an arena with
             every row masked (inf, rows -1). Then pass B's tie order: an
             arena of 2^17 rows, each of 2^15 rows repeated 4 times, k=8
             and 10, pass B (scan.pass_b) equal to a stable sort of the
@@ -147,13 +149,49 @@ Phases, one line each; any failure exits non-zero:
             A's bf16 form at D=32 over the projected arena and the re-rank's
             gather-distance (C=128, D=384) held against their plain
             versions and timed beside their bounds
+ 17 host    the host-RAM arena (kind="host", pinned host memory streamed
+            through a ring of SYNC_EVERY device chunks by a copy stream)
+            through the Engine: bench.py's host configuration, every
+            default, on phase 4's rows (the projected int8 mirror switches
+            itself on, p=32) and the same rows with serve_proj_dim=0 (the
+            full-dimension sweep, recall@10 >= 0.99), B=4096, QPS and
+            recall against phase 4's oracle; bench.py's anisotropic pair
+            on phase 16's collection (proj_dim 0, and 32 with rerank 128:
+            recall >= 0.90), B=1024; each read timed by part (bytes
+            streamed, H2D GB/s beside a bare pinned copy_ of the same
+            bytes, copies / scans / merges by CUDA events, how much of the
+            copies ran under the scans, the host re-rank, the device's
+            idle share under torch.profiler); launches per path (form 1 and
+            gather-distance on the full sweep, form 5 on the projected
+            ones, forms 3 and 2 on int8 / bf16); form 1 over one chunk,
+            its re-rank's gather-distance (C=10) and form 5 over the mirror
+            (B=4096 and 1024) held to their plain versions and timed
+            beside their bounds; deletes and a filter across the full
+            index's chunks; int8 and bf16 host indexes of 300,000 rows
+            held to the exact scan of their stored rows (>= 0.99) and
+            reported against the f32 oracle; the default index through a
+            checkpoint under build/: the same reads, every vector
+            bit-equal, the auto projection kept
+ 18 server  make_app over an Engine on the card, on 127.0.0.1:0: every
+            step of testdata/contracts.json; phase 4's index over HTTP at
+            bench.py's shapes (16 concurrent plain requests of B=512, 8
+            columnar of B=2048 with base64 queries, the same with
+            wire="b64", 64 one-query requests through the QueryBatcher):
+            QPS of each, every answer's ids Engine.search's for the same
+            queries (except adjacent ties), the batcher's stats;
+            /debug/profile for 1 s under HTTP searches: a Chrome trace
+            with the port's CUDA kernels; the CLI as subprocesses: `python
+            -m kektordb_tpu_torch serve` with a data dir (create, add,
+            search, SIGTERM, restart, every vector read back bit-equal)
+            and `mcp` over stdio (61 tools, a vector tool call)
 Kernel times are the card's own: the timed calls queue behind a sleep
 kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
 host's issue time per call is printed beside each. Each path of phases
-7 to 16 (the build, the scan search, the beam, vacuum, import, the two
+7 to 18 (the build, the scan search, the beam, vacuum, import, the two
 probes, the hybrid and decayed searches, the bf16 build and beam, the
 exact and int8 searches, the journaled adds, the beams on reopened
-indexes, the compressed and projected reads) runs with every launch
+indexes, the compressed and projected reads, the host sweeps, the HTTP
+reads) runs with every launch
 count set to 0 just
 before it; its counts (pass A's also by form) are read and printed just
 after, and a kernel (or pass-A form) the path runs must have launched.
@@ -195,8 +233,9 @@ DEV = "cuda"
 # f32_fast (form 1), bf16 (2), f32 (form 0, exact), int8 (3), asym (4,
 # exact); a last query slab cut short, a depth tail, a query slab
 # streamed with each depth chunk, rows of a stride no 16-byte copy takes,
-# and the projected read's small depths (at most one bf16 k16 step, rows
-# of 16 to 64 bytes)
+# the projected read's small depths (at most one bf16 k16 step, rows of
+# 16 to 64 bytes), and the host arena's projected mirror (asym_fast, form
+# 5: an f32 query against 32-byte int8 rows)
 EDGE_CASES = (("B=200", 200, DIM, "f32_fast"),
               ("depth tail", KERNEL_B, 100, "f32_fast"),
               ("streamed query slab", KERNEL_B, 768, "f32_fast"),
@@ -215,7 +254,9 @@ EDGE_CASES = (("B=200", 200, DIM, "f32_fast"),
               ("B=200", 200, DIM, "asym"),
               ("100-byte rows", KERNEL_B, 100, "asym"),
               ("D=384", KERNEL_B, 384, "asym"),
-              ("streamed query slab", KERNEL_B, 768, "asym"))
+              ("streamed query slab", KERNEL_B, 768, "asym"),
+              ("projected mirror", KERNEL_B, 32, "asym_fast"),
+              ("B=200 projected mirror", 200, 32, "asym_fast"))
 # phase 3: the per-form cases also run at this odd G (ST = 64 G)
 FORM_NAMES = ("f32", "f32_fast", "bf16", "int8", "asym", "asym_fast")
 ODD_G = 7
@@ -255,6 +296,17 @@ INT8_COMPRESS_RECALL_MIN = 0.90
 PROJ_N, PROJ_DIM, PROJ_SEED = 400_000, 384, 424242
 PROJ_P, PROJ_RERANK, PROJ_B, PROJ_BATCHES = 32, 128, 1024, 8
 PROJ_RECALL_MIN = 0.90
+# phase 17: the host arena (bench.py:916-986): B=BATCH searches of each
+# read, the full-dimension index's deletes (every HOST_DELETE_EVERY-th
+# row), and the int8 / bf16 host indexes of HOST_SPAN_N rows (2 chunks)
+HOST_BATCHES, HOST_DELETE_EVERY = 4, 100
+HOST_SPAN_N = 300_000
+# phase 18: bench.py's HTTP shapes (bench.py:120-170), the one-query
+# requests the QueryBatcher coalesces, the profile's seconds, and the
+# CLI's rows and start limit
+HTTP_PLAIN, HTTP_PLAIN_B, HTTP_COL, HTTP_COL_B = 16, 512, 8, 2048
+HTTP_SINGLE, PROFILE_S = 64, 1
+CLI_N, CLI_SEED, CLI_START_S = 2000, 1241, 240
 # phase 12: rows of the bf16 default index
 BF16_N, BF16_SEED = 500_000, 1237
 LAYOUT_SAME_MIN = 0.99
@@ -389,7 +441,7 @@ def form_cases(torch, quant, dist):
     ]
     gen = torch.Generator(device=DEV).manual_seed(9)
     for label, b, d, kind in EDGE_CASES:
-        if kind in ("int8", "asym"):       # unit Gaussian rows, int8 codes
+        if kind in ("int8", "asym", "asym_fast"):   # unit Gaussian rows
             v = dist.normalize(torch.randn((KERNEL_N, d), generator=gen,
                                            device=DEV))
             q = dist.normalize(torch.randn((b, d), generator=gen,
@@ -701,7 +753,7 @@ def exact_phase(torch, main: dict, card: str) -> dict:
           flush=True)
     if recall < RECALL_MIN:
         raise AssertionError(f"exact recall {recall} < {RECALL_MIN}")
-    eng.close()
+    eng.configure_index("sift", {"scan_exact": False})   # phase 18 serves it
     return {"qps": qps, "recall": recall,
             "launches": counts["scan_pass_a forms"][scan.FORM_F32]}
 
@@ -820,7 +872,7 @@ def int_mm_ms(torch, q, v):
 
 
 def hold_form(torch, card, label, q, v, biasA, biasB, st, g,
-              exact) -> dict:
+              exact, fast=False) -> dict:
     """One pass-A form at one shape: a kernel call held against the plain
     version on the same inputs as in phase 3 (`compare`; int8 x int8
     bit-equal), then kernel and plain timed in turns, beside the form's
@@ -829,11 +881,12 @@ def hold_form(torch, card, label, q, v, biasA, biasB, st, g,
     product alone. Returns {"form", "ms", "issue_ms", "plain_ms",
     "bound_ms", "bound_by", "max_abs_err", "matmul_ms", "shape"}."""
     from kektordb_tpu_torch.ops import scan
-    form = scan.pass_a_form(q.dtype, v.dtype, fast=False, exact=exact)
+    form = scan.pass_a_form(q.dtype, v.dtype, fast=fast, exact=exact)
     B, N, D = q.shape[0], v.shape[0], q.shape[1]
 
     def kernel():
-        return scan.pass_a(q, v, biasA, biasB, st=st, g=g, exact=exact)
+        return scan.pass_a(q, v, biasA, biasB, st=st, g=g, exact=exact,
+                           fast=fast)
 
     def plain():
         return scan.pass_a_plain(q, v, biasA, biasB, st=st, g=g, form=form)
@@ -2295,11 +2348,778 @@ def proj_phase(torch, card: str) -> dict:
           f"({by}), share {bms / kt.ms:.3f} [{card}]", flush=True)
     eng.close()
     return {"qps": qps, "recall": rec, "full_qps": fqps, "full_recall": frec,
+            "base": base, "queries": queries, "gt": gt,
             "pass_a_launches": counts["scan_pass_a"],
             "gather_launches": counts["gather_dist"], "pass_a": pa,
             "gather": {"ms": kt.ms, "issue_ms": kt.issue_ms,
                        "plain_ms": pt.ms, "bound_ms": bms, "bound_by": by,
                        "max_abs_err": err, "shape": [PROJ_B, C, PROJ_DIM]}}
+
+
+def sweep_parts(torch, idx, fn, label: str, batch_ms: float,
+                card: str) -> dict:
+    """Phase 17(c): one search of a host index with its sweep traced
+    (`HostArenaIndex.trace`: CUDA events around each chunk's copy, scan
+    and merge), beside a bare copy of the same number of bytes from pinned
+    memory, the link's bound; then the same search under torch.profiler
+    for the device's busy time, against the unprofiled batch (`batch_ms`)
+    for its idle share (the profiler can lose kernel records after a large
+    session, so the idle share by the sweep's own events, its first copy
+    to its last merge, is printed beside it). Returns the parts."""
+    idx.trace = True
+    try:
+        fn()
+    finally:
+        idx.trace = False
+    sw = dict(idx.last_sweep)
+    nbytes = sw["bytes"]
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    bare = cuda_ms(torch, lambda: dst.copy_(src, non_blocking=True), 3).ms
+    del src, dst
+    link_gbs = nbytes / bare / 1e6
+    sweep_gbs = nbytes / sw["copy_ms"] / 1e6
+    hidden = sw["copy_ms"] + sw["scan_ms"] + sw["merge_ms"] - sw["wall_ms"]
+    dev, wall, top, _ = device_ms(torch, fn)
+    rerank = sw.get("rerank_s")
+    print(f"phase host: {label}, time by part: {sw['chunks']} chunks of "
+          f"{sw['chunk_rows']} rows, {nbytes} bytes streamed; copies "
+          f"{sw['copy_ms']:.3f} ms ({sweep_gbs:.2f} GB/s; a bare pinned "
+          f"copy_ of the same bytes {bare:.3f} ms, {link_gbs:.2f} GB/s), "
+          f"scans {sw['scan_ms']:.3f} ms ({sw['scan_ms'] / sw['chunks']:.3f}"
+          f" per chunk: pass A, pass B, re-rank), merges "
+          f"{sw['merge_ms']:.3f} ms; device wall {sw['wall_ms']:.3f} ms, so "
+          f"{max(hidden, 0.0):.3f} ms ({max(hidden, 0.0) / sw['copy_ms']:.3f}"
+          f" of the copies) ran under the scans"
+          + (f"; host re-rank {rerank * 1e3:.3f} ms "
+             f"({sw['rerank_bytes']} bytes gathered)" if rerank else "")
+          + f"; HostArenaIndex.search {sw['search_s'] * 1e3:.3f} ms of the "
+          f"Engine.search"
+          + f"; the sweep's device span leaves the card idle "
+          f"{1 - sw['wall_ms'] / batch_ms:.3f} of the {batch_ms:.3f} ms "
+          f"batch; under the profiler: device {dev:.3f} ms in {wall:.3f} "
+          f"ms, idle {1 - dev / batch_ms:.3f}; device time by op: {top} "
+          f"[{card}]", flush=True)
+    return {**sw, "bare_copy_ms": bare, "link_gbs": link_gbs,
+            "sweep_gbs": sweep_gbs, "hidden_ms": hidden, "device_ms": dev,
+            "idle": 1 - dev / batch_ms,
+            "span_idle": 1 - sw["wall_ms"] / batch_ms}
+
+
+def host_search(torch, eng, name, Q, B, batches, gt, label, need,
+                forms, card, metric_rows=None) -> dict:
+    """`batches` Engine.search calls of B queries on one host index, each
+    path's launches counted (`counted`); recall@K of the first len(gt)
+    queries against the exact oracle. Returns {"qps", "recall", "counts",
+    "batch_ms", "res"}."""
+    eng.search(name, Q[:B], k=K)                        # warm
+    res, sec, counts = counted(
+        torch, label, lambda: [eng.search(name, Q[(i % 2) * B:
+                                                  (i % 2 + 1) * B], k=K)
+                               for i in range(batches)], need, forms)
+    got = np.array([[int(x["id"][1:]) for x in h]
+                    for h in res[0][:len(gt)]])
+    return {"qps": batches * B / sec, "recall": recall_at(got, gt),
+            "counts": counts, "batch_ms": sec * 1e3 / batches, "res": res}
+
+
+def host_phase(torch, main: dict, proj: dict, card: str) -> dict:
+    """Phase 17: the host-RAM arena (kind="host") through the Engine on
+    the card. (a) bench.py's host configuration (bench.py:952-986): every
+    default, phase 4's N_BASE SIFT-like rows (the projected mirror switches
+    itself on: p=32), then the same rows with serve_proj_dim=0 (the
+    full-dimension sweep, recall@K >= RECALL_MIN); (b) bench.py's
+    anisotropic pair (bench.py:916-950) on phase 16's collection,
+    proj_dim 0 and 32 (recall >= PROJ_RECALL_MIN); (c) each read timed by
+    part (`sweep_parts`); (d) launches per path, and pass A's form 1 over
+    one chunk, form 5 over the projected mirror (B=BATCH and PROJ_B) and
+    the sweep's gather-distance held to their plain versions and timed;
+    (e) deletes and a filter on the full-dimension index, int8 and bf16
+    host indexes of HOST_SPAN_N rows (recall against the exact scan of
+    their stored rows >= RECALL_MIN, and against the f32 oracle); (f) a checkpoint of the default
+    index under build/, reopened: the same reads, every vector bit-equal,
+    the auto projection kept."""
+    import gc as pygc
+    import os
+    import shutil
+    import tempfile
+
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import quantize as quant
+    from kektordb_tpu_torch.ops import scan
+    from kektordb_tpu_torch.persist import checkpoint
+    from kektordb_tpu_torch.probes import gather_cold as gc
+    base, queries, gt = main["base"], main["queries"], main["gt"]
+    out: dict = {}
+
+    # (a) the default host index, then the full-dimension sweep
+    ea = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    ea.create_index("host", kind="host")
+    t0 = time.perf_counter()
+    ea.add_batch("host", [f"h{i}" for i in range(N_BASE)], base)
+    ingest_s = time.perf_counter() - t0
+    ha = ea.indexes["host"].index
+    t0 = time.perf_counter()
+    ea.search("host", queries[:BATCH], k=K)    # fits the mirror
+    first_s = time.perf_counter() - t0
+    if not (ha._proj_auto and ha.proj_dim == 32
+            and ha._proj_vecs is not None and ha._proj_vecs.is_pinned()
+            and ha._vectors.is_pinned()):
+        raise AssertionError("the default host index did not switch on "
+                             "its pinned projected mirror")
+    auto = host_search(torch, ea, "host", queries, BATCH, HOST_BATCHES, gt,
+                       "host sweep, projected (default index)",
+                       ("scan_pass_a",), (scan.FORM_ASYM_FAST,), card)
+    print(f"phase host: {N_BASE} x {DIM} SIFT-like rows, kind=\"host\" "
+          f"with every default: ingest {ingest_s:.3f} s (pinning and "
+          f"copying on growth {ha.grow_seconds:.3f} s), capacity "
+          f"{ha._cap}; first search (mirror fit, p={ha.proj_dim}) "
+          f"{first_s:.3f} s; Engine.search B={BATCH} k={K}: "
+          f"{auto['qps']:.1f} QPS, recall@{K} {auto['recall']:.4f} on "
+          f"{len(gt)} queries (phase 4's exact oracle) [{card}]",
+          flush=True)
+    ef = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    ef.create_index("full", kind="host", serve_proj_dim=0)
+    t0 = time.perf_counter()
+    ef.add_batch("full", [f"f{i}" for i in range(N_BASE)], base,
+                 [{"grp": i % 4} for i in range(N_BASE)])
+    fingest_s = time.perf_counter() - t0
+    hf = ef.indexes["full"].index
+    full = host_search(torch, ef, "full", queries, BATCH, HOST_BATCHES, gt,
+                       "host sweep, full dimension", ("scan_pass_a",
+                                                      "gather_dist"),
+                       (scan.FORM_F32_FAST,), card)
+    print(f"phase host: the same rows with serve_proj_dim=0 (ingest "
+          f"{fingest_s:.3f} s): the full-dimension sweep, Engine.search "
+          f"B={BATCH} k={K}: {full['qps']:.1f} QPS, recall@{K} "
+          f"{full['recall']:.4f} (min {RECALL_MIN}) [{card}]", flush=True)
+    if full["recall"] < RECALL_MIN:
+        raise AssertionError(f"full-dimension host recall {full['recall']}"
+                             f" < {RECALL_MIN}")
+    qb = queries[:BATCH]
+    out["auto"] = {**auto, "parts": sweep_parts(
+        torch, ha, lambda: ea.search("host", qb, k=K),
+        f"projected sweep B={BATCH}", auto["batch_ms"], card)}
+    out["full"] = {**full, "parts": sweep_parts(
+        torch, hf, lambda: ef.search("full", qb, k=K),
+        f"full-dimension sweep B={BATCH}", full["batch_ms"], card)}
+
+    # (d) the kernels at the sweep's shapes: form 1 over one chunk and its
+    # re-rank's gather-distance (C = k); form 5 over the projected mirror
+    C = hf.chunk_rows
+    v = hf._vectors[:C].to(DEV)
+    vn = hf._norms[:C].to(DEV)
+    q = torch.from_numpy(qb).to(DEV)
+    live = torch.ones(C, dtype=torch.bool, device=DEV)
+    bA, bB = scan.serving_bias(v, vn, live, dist.L2)
+    st, g = scan.kernel_tiles(C)
+    out["form1"] = hold_form(torch, card, "host sweep chunk's (fast form)",
+                             q, v, bA, bB, st, g, False, fast=True)
+    _, rows = scan._scan_kernel(q, v, bA, bB, K, fast=True)
+    err, ratio, n_inf = hold_gather(torch, "host sweep re-rank", v, rows, q,
+                                    dist.L2, corpus_norms=vn)
+    kt = cuda_ms(torch, lambda: dist.gathered(v, rows, q, dist.L2,
+                                              corpus_norms=vn), 10)
+    pt = cuda_ms(torch, lambda: dist.gathered_plain(v, rows, q, dist.L2), 5)
+    bms, by = gc.bound_ms([rows], DIM, gc.row_bytes(DIM, "f32"),
+                          q.element_size())
+    print(f"phase host: the sweep's re-rank gather-distance B={BATCH} C={K} "
+          f"D={DIM} f32 over one {C}-row chunk: max|err| {err:.6g} "
+          f"({ratio:.3g} of tol), +inf {n_inf}; kernel {kt.ms:.4f} ms "
+          f"({issue_note(kt)}), plain {pt.ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), share {bms / kt.ms:.3f} [{card}]", flush=True)
+    out["gather"] = {"ms": kt.ms, "issue_ms": kt.issue_ms,
+                     "plain_ms": pt.ms, "bound_ms": bms, "bound_by": by,
+                     "max_abs_err": err, "shape": [BATCH, K, DIM]}
+    del v, vn, bA, bB, rows
+
+    def hold_mirror(idx, Qm, label):
+        """Form 5 over the projected mirror's first chunk as the sweep
+        scans it: the projected f32 query against the int8 codes, the
+        bias in the dequantized domain for L2."""
+        n = min(idx._cap, C * max(1, idx.dim * 4 // idx.proj_dim))
+        pv = idx._proj_vecs[:n].to(DEV)
+        pn = idx._proj_norms[:n].to(DEV)
+        qq = torch.from_numpy(Qm).to(DEV)
+        if idx.metric == dist.COSINE:
+            qq = dist.normalize(qq)
+        qp = qq @ torch.from_numpy(idx._proj_basis).to(DEV)
+        quantum = (idx._proj_quant.abs_max / 127.0).to(DEV) \
+            if idx.metric == dist.L2 else None
+        pA, pB = scan.serving_bias(
+            pv, pn, torch.from_numpy(idx._valid[:n]).to(DEV), idx.metric,
+            quantum)
+        pst, pg = scan.kernel_tiles(n)
+        return hold_form(torch, card, label, qp, pv, pA, pB, pst, pg, False)
+    out["form5"] = hold_mirror(ha, qb, "host projected mirror's (D=32)")
+
+    # (b) bench.py's anisotropic pair on phase 16's collection
+    abase, aq, agt = proj["base"], proj["queries"], proj["gt"]
+    ec = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    for name, kw in (("aniso_full", {"serve_proj_dim": 0}),
+                     ("aniso_proj", {"serve_proj_dim": PROJ_P,
+                                     "serve_proj_rerank": PROJ_RERANK})):
+        ec.create_index(name, metric=dist.COSINE, kind="host", **kw)
+        ec.add_batch(name, [f"a{i}" for i in range(PROJ_N)], abase)
+    af = host_search(torch, ec, "aniso_full", aq, PROJ_B, PROJ_BATCHES, agt,
+                     "host sweep, anisotropic full dimension",
+                     ("scan_pass_a", "gather_dist"), (scan.FORM_F32_FAST,),
+                     card)
+    ap = host_search(torch, ec, "aniso_proj", aq, PROJ_B, PROJ_BATCHES, agt,
+                     "host sweep, anisotropic projected p=32",
+                     ("scan_pass_a",), (scan.FORM_ASYM_FAST,), card)
+    hp = ec.indexes["aniso_proj"].index
+    print(f"phase host: bench.py's anisotropic pair, {PROJ_N} x {PROJ_DIM} "
+          f"cosine rows (phase 16's collection), Engine.search B={PROJ_B} "
+          f"k={K}: proj_dim=0 {af['qps']:.1f} QPS, recall@{K} "
+          f"{af['recall']:.4f}; proj_dim={hp.proj_dim} proj_rerank="
+          f"{hp.proj_rerank} {ap['qps']:.1f} QPS, recall@{K} "
+          f"{ap['recall']:.4f} (min {PROJ_RECALL_MIN}) [{card}]",
+          flush=True)
+    if ap["recall"] < PROJ_RECALL_MIN:
+        raise AssertionError(f"projected host recall {ap['recall']} < "
+                             f"{PROJ_RECALL_MIN}")
+    aqb = aq[:PROJ_B]
+    out["aniso_full"] = {**af, "parts": sweep_parts(
+        torch, ec.indexes["aniso_full"].index,
+        lambda: ec.search("aniso_full", aqb, k=K),
+        f"anisotropic full-dimension sweep B={PROJ_B}", af["batch_ms"],
+        card)}
+    out["aniso_proj"] = {**ap, "parts": sweep_parts(
+        torch, hp, lambda: ec.search("aniso_proj", aqb, k=K),
+        f"anisotropic projected sweep B={PROJ_B}", ap["batch_ms"], card)}
+    out["form5_b1024"] = hold_mirror(hp, aqb, "host anisotropic projected "
+                                     "mirror's (D=32)")
+    ec.close()
+    del ec, hp
+
+    # (e) deletes and a filter across the full-dimension index's chunks;
+    # int8 and bf16 host indexes against the f32 oracle
+    dead = [f"f{i}" for i in range(0, N_BASE, HOST_DELETE_EVERY)]
+    for e in dead:
+        ef.delete("full", e)
+    res = ef.search("full", qb, k=K, filter="grp = 1")
+    ids = [int(x["id"][1:]) for h in res for x in h]
+    if len(ids) != BATCH * K or any(i % 4 != 1 for i in ids) \
+            or any(i % HOST_DELETE_EVERY == 0 for i in ids):
+        raise AssertionError("the filtered host sweep returned a row the "
+                             "filter or a delete excludes")
+    sb, sq = base[:HOST_SPAN_N], queries[:RECALL_QUERIES]
+    es = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    span = {}
+    for name, metric, prec, form in (
+            ("int8", dist.COSINE, "int8", scan.FORM_INT8),
+            ("bf16", dist.L2, "bfloat16", scan.FORM_BF16)):
+        es.create_index(name, metric=metric, precision=prec, kind="host",
+                        serve_proj_dim=0)
+        es.add_batch(name, [f"s{i}" for i in range(HOST_SPAN_N)], sb)
+        sgt = dist.brute_force_topk(
+            torch.from_numpy(sq).to(DEV), torch.from_numpy(sb).to(DEV), K,
+            metric)[1].cpu().numpy()
+        span[name] = host_search(torch, es, name, queries, RECALL_QUERIES,
+                                 2, sgt, f"host sweep, {prec}",
+                                 ("scan_pass_a",), (form,), card)
+        # the exact blocked scan over the same stored rows and the same
+        # scores (the sweep's plain route, every row, no G-groups)
+        si = es.indexes[name].index
+        vd, nd = si._vectors.to(DEV), si._norms.to(DEV)
+        q = torch.from_numpy(sq).to(DEV)
+        if metric == dist.COSINE:
+            q = dist.normalize(q)
+        if prec == "int8":
+            q = quant.quantize(si.quantizer, q)[0]
+        else:
+            q = q.to(vd.dtype)
+        bA, bB = scan.serving_bias(vd, nd, torch.from_numpy(
+            si._valid).to(DEV), metric)
+        stored = scan._scan_blocked(q, vd, bA, bB, K)[1].cpu().numpy()
+        got = np.array([[int(x["id"][1:]) for x in h]
+                        for h in span[name]["res"][0]])
+        span[name]["stored_recall"] = recall_at(got, stored)
+        del vd, nd, bA, bB
+        if span[name]["stored_recall"] < RECALL_MIN:
+            raise AssertionError(f"{prec} host sweep against the exact "
+                                 f"scan of its rows: recall "
+                                 f"{span[name]['stored_recall']} < "
+                                 f"{RECALL_MIN}")
+    chunks = -(-HOST_SPAN_N // es.indexes["int8"].index.chunk_rows)
+    print(f"phase host: {len(dead)} deletes and filter grp = 1 over the "
+          f"full-dimension index's {hf._cap // hf.chunk_rows} chunks: "
+          f"{len(ids)} hits, every one allowed and live; {HOST_SPAN_N} rows "
+          f"({chunks} chunks), B={RECALL_QUERIES}, recall@{K} against the "
+          f"exact scan of the stored rows (min {RECALL_MIN}) and against "
+          f"the exact oracle over the f32 rows: int8 (cosine) "
+          f"{span['int8']['stored_recall']:.4f} and "
+          f"{span['int8']['recall']:.4f}; bf16 "
+          f"{span['bf16']['stored_recall']:.4f} and "
+          f"{span['bf16']['recall']:.4f} [{card}]", flush=True)
+    out["span"] = span
+    es.close()
+    ef.close()
+    del es, ef, hf
+
+    # (f) the default index through a checkpoint
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="host_", dir="build")
+    try:
+        qr = queries[:PERSIST_B]
+        want = ea.search("host", qr, k=K)
+        t0 = time.perf_counter()
+        arrays, state = ea._snapshot_state()
+        checkpoint.save(os.path.join(root, "checkpoints"), arrays, state)
+        save_s = time.perf_counter() - t0
+        nbytes = du(root)
+        del arrays
+        t0 = time.perf_counter()
+        er = Engine(EngineConfig(device=DEV, data_dir=root,
+                                 start_background=False)).open()
+        open_s = time.perf_counter() - t0
+        hr = er.indexes["host"].index
+        got = er.search("host", qr, k=K)
+        excused = same_reads(want, got, "host checkpoint")
+        if not (torch.equal(hr._vectors, ha._vectors)
+                and torch.equal(hr._norms, ha._norms)
+                and (hr._valid == ha._valid).all()):
+            raise AssertionError("a host vector did not read back "
+                                 "bit-equal")
+        if not (hr._proj_auto and hr.proj_dim == ha.proj_dim
+                and hr._vectors.is_pinned()):
+            raise AssertionError("the checkpoint lost the auto projection "
+                                 "or the pinned arena")
+        print(f"phase host: checkpoint of the default host index "
+              f"(Engine._snapshot_state + checkpoint.save) in {save_s:.3f} "
+              f"s, {nbytes} bytes; Engine(data_dir) open {open_s:.3f} s; "
+              f"B={PERSIST_B} read as before ({excused} places excused as "
+              f"ties), {N_BASE} vectors bit-equal, the auto projection "
+              f"kept (p={hr.proj_dim}) [{card}]", flush=True)
+        out["ckpt"] = {"save_s": save_s, "open_s": open_s, "bytes": nbytes}
+        er.close()
+        del er, hr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ea.close()
+    del ea, ha
+    pygc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class ServedApp:
+    """`make_app(engine, **kw)` on 127.0.0.1:0, served by an event loop in
+    a thread of this process; `stop` cleans the app up and joins it."""
+
+    def __init__(self, engine, **kw):
+        import asyncio
+        import threading
+
+        from aiohttp import web
+
+        from kektordb_tpu_torch.server import make_app
+        self.loop = asyncio.new_event_loop()
+        started = threading.Event()
+        box = {}
+
+        async def start():
+            runner = web.AppRunner(make_app(engine, **kw))
+            await runner.setup()
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            box["runner"] = runner
+            box["port"] = site._server.sockets[0].getsockname()[1]
+            started.set()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(start())
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not started.wait(60):
+            raise AssertionError("the in-process server did not start")
+        self.runner = box["runner"]
+        self.base = f"http://127.0.0.1:{box['port']}"
+
+    def stop(self):
+        import asyncio
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(),
+                                         self.loop).result(timeout=60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=60)
+
+
+def run_contracts(base: str) -> int:
+    """Every step of testdata/contracts.json against a live server, as
+    tests/test_contracts.py runs them; raises on the first failure.
+    Returns the number of steps."""
+    import base64
+
+    import requests
+    with open("testdata/contracts.json") as f:
+        steps = json.load(f)["steps"]
+    for step in steps:
+        kw = {}
+        if "body" in step:
+            kw["json"] = step["body"]
+        elif "raw_body" in step:
+            kw["data"] = step["raw_body"].encode()
+        r = requests.request(step["method"], base + step["path"], timeout=120,
+                             **kw)
+        sid = step["id"]
+        if r.status_code != step["expect_status"]:
+            raise AssertionError(f"contract {sid}: got {r.status_code}, "
+                                 f"body={r.text[:200]}")
+        if r.status_code == 204 or not r.content \
+                or "json" not in r.headers.get("Content-Type", ""):
+            continue
+        data = r.json()
+        if step.get("expect_type") == "array":
+            if not isinstance(data, list):
+                raise AssertionError(f"contract {sid}: not an array")
+            continue
+        bad = [f for f in step.get("expect_fields", []) if f not in data]
+        bad += [k for k, v in (step.get("expect_equals") or {}).items()
+                if data.get(k) != v]
+        if "expect_contains_name" in step and not any(
+                i.get("name") == step["expect_contains_name"] for i in data):
+            bad.append("expect_contains_name")
+        if step.get("expect_ids_b64_count_matches_shape"):
+            flat = base64.b64decode(data["ids_b64"]).decode().split("\n")
+            if len(flat) != data["shape"][0] * data["shape"][1]:
+                bad.append("ids_b64 count")
+        if "expect_first_id" in step \
+                and data["ids"][0] != step["expect_first_id"]:
+            bad.append("expect_first_id")
+        if "expect_ids_subset" in step \
+                and not set(data["ids"]) <= set(step["expect_ids_subset"]):
+            bad.append("expect_ids_subset")
+        if bad:
+            raise AssertionError(f"contract {sid}: {bad}; {str(data)[:200]}")
+    return len(steps)
+
+
+def same_ids(want_ids, want_d, got_ids, label: str) -> int:
+    """Per query, the ids of an HTTP answer against Engine.search's for the
+    same queries: equal, except where two adjacent distances of the
+    engine's answer tie within RTOL. Returns the places excused."""
+    excused = 0
+    for b, (wi, wd, gi) in enumerate(zip(want_ids, want_d, got_ids)):
+        if list(gi) == list(wi):
+            continue
+        if len(gi) != len(wi):
+            raise AssertionError(f"{label}: query {b} has {len(gi)} hits")
+        for j, (a, c) in enumerate(zip(wi, gi)):
+            if a == c:
+                continue
+            tol = RTOL * (abs(wd[j]) + 1.0)
+            if not any(0 <= i < len(wd) and abs(wd[i] - wd[j]) <= tol
+                       for i in (j - 1, j + 1)):
+                raise AssertionError(f"{label}: query {b} place {j}: "
+                                     f"{c} where the engine has {a}")
+            excused += 1
+    return excused
+
+
+def http_reads(torch, eng, base: str, queries: np.ndarray,
+               card: str) -> dict:
+    """Phase 18(b): phase 4's index served over HTTP at bench.py's shapes
+    (bench.py:120-170): HTTP_PLAIN concurrent requests of HTTP_PLAIN_B
+    queries, HTTP_COL columnar requests of HTTP_COL_B base64 queries, the
+    same with wire="b64"; each answer's ids against Engine.search's for
+    the same queries (`same_ids`); then HTTP_SINGLE concurrent one-query
+    requests, which the QueryBatcher coalesces, and its stats. Returns
+    the QPS of each and the launches of the whole run."""
+    import asyncio
+    import base64
+
+    import aiohttp
+
+    from kektordb_tpu_torch.ops import scan
+    queries = np.ascontiguousarray(queries)
+    url = base + "/vector/actions/search"
+    plain = [{"index_name": "sift", "k": K, "query_vectors":
+              queries[i * HTTP_PLAIN_B:(i + 1) * HTTP_PLAIN_B].tolist()}
+             for i in range(HTTP_PLAIN)]
+    cols = [queries[i * HTTP_COL_B:(i + 1) * HTTP_COL_B]
+            for i in range(HTTP_COL)]
+    col = [{"index_name": "sift", "k": K, "columnar": True,
+            "query_vectors_b64": base64.b64encode(
+                np.ascontiguousarray(c, "<f4").tobytes()).decode(),
+            "query_shape": [HTTP_COL_B, DIM]} for c in cols]
+    b64 = [dict(b, wire="b64") for b in col]
+    single = [{"index_name": "sift", "k": K,
+               "query_vector": queries[i].tolist()}
+              for i in range(HTTP_SINGLE)]
+
+    async def run():
+        out = {}
+        timeout = aiohttp.ClientTimeout(total=600)
+        async with aiohttp.ClientSession(timeout=timeout) as sess:
+            async def post(body):
+                async with sess.post(url, json=body) as r:
+                    o = await r.json()
+                    if r.status != 200:
+                        raise AssertionError(f"HTTP {r.status}: {o}")
+                    return o
+            for name, reqs in (("plain", plain), ("columnar", col),
+                               ("b64", b64), ("single", single)):
+                await post(reqs[0])                         # warm
+                t0 = time.perf_counter()
+                res = await asyncio.gather(*[post(b) for b in reqs])
+                out[name] = (res, time.perf_counter() - t0)
+            async with sess.get(base + "/system/stats") as r:
+                out["stats"] = (await r.json())["batcher"]
+        return out
+
+    out, sec, counts = counted(torch, "HTTP reads of phase 4's index",
+                               lambda: asyncio.run(run()),
+                               ("scan_pass_a", "gather_dist"),
+                               (scan.FORM_F32_FAST,))
+    want = eng.search("sift", queries[:HTTP_COL * HTTP_COL_B], k=K,
+                      columnar=True)
+    wi, wd = want["ids"], want["distances"]
+    excused = 0
+    for i, o in enumerate(out["plain"][0]):
+        got = [[h["id"] for h in hits] for hits in o["results_batch"]]
+        lo = i * HTTP_PLAIN_B
+        excused += same_ids(wi[lo:lo + HTTP_PLAIN_B],
+                            wd[lo:lo + HTTP_PLAIN_B], got, "HTTP plain")
+    for i, (oc, ob) in enumerate(zip(out["columnar"][0], out["b64"][0])):
+        lo = i * HTTP_COL_B
+        flat = base64.b64decode(ob["ids_b64"]).decode().split("\n")
+        if ob["shape"] != [HTTP_COL_B, K]:
+            raise AssertionError(f"b64 wire shape {ob['shape']}")
+        gb = [flat[j * K:(j + 1) * K] for j in range(HTTP_COL_B)]
+        for label, got in (("HTTP columnar", oc["ids"]), ("HTTP b64", gb)):
+            excused += same_ids(wi[lo:lo + HTTP_COL_B],
+                                wd[lo:lo + HTTP_COL_B], got, label)
+    for j, o in enumerate(out["single"][0]):
+        excused += same_ids(wi[j:j + 1], wd[j:j + 1],
+                            [o["ids"]], "HTTP one-query")
+    qps = {name: n * b / out[name][1] for name, n, b in (
+        ("plain", HTTP_PLAIN, HTTP_PLAIN_B), ("columnar", HTTP_COL,
+                                              HTTP_COL_B),
+        ("b64", HTTP_COL, HTTP_COL_B), ("single", HTTP_SINGLE, 1))}
+    print(f"phase server: phase 4's {N_BASE} x {DIM} index over HTTP: "
+          f"{HTTP_PLAIN} concurrent plain requests of B={HTTP_PLAIN_B} "
+          f"{qps['plain']:.1f} QPS; {HTTP_COL} columnar of B={HTTP_COL_B} "
+          f"(base64 queries) {qps['columnar']:.1f} QPS; the same with "
+          f"wire=\"b64\" {qps['b64']:.1f} QPS; {HTTP_SINGLE} concurrent "
+          f"one-query requests {qps['single']:.1f} QPS, QueryBatcher.stats "
+          f"{out['stats']}; every answer's ids those of Engine.search for "
+          f"the same queries ({excused} places excused as ties) [{card}]",
+          flush=True)
+    return {"qps": qps, "counts": counts, "batcher": out["stats"]}
+
+
+def profile_route(torch, base: str, queries: np.ndarray, card: str) -> dict:
+    """Phase 18(c): POST /debug/profile?seconds=PROFILE_S while HTTP reads
+    run; the task completes, and its Chrome trace holds CUDA kernel
+    records, the port's kernels among them."""
+    import requests
+    r = requests.post(base + f"/debug/profile?seconds={PROFILE_S}",
+                      timeout=60)
+    if r.status_code != 202:
+        raise AssertionError(f"/debug/profile: {r.status_code} {r.text}")
+    task = r.json()
+    t_end = time.perf_counter() + PROFILE_S
+    n = 0
+    while time.perf_counter() < t_end:
+        requests.post(base + "/vector/actions/search", json={
+            "index_name": "sift", "k": K, "columnar": True,
+            "query_vectors": queries[:HTTP_PLAIN_B].tolist()}, timeout=120)
+        n += 1
+    deadline = time.perf_counter() + 120
+    while time.perf_counter() < deadline:
+        t = requests.get(base + "/system/tasks/" + task["task_id"],
+                         timeout=60).json()
+        if t["status"] in ("completed", "failed"):
+            break
+        time.sleep(0.2)
+    if t["status"] != "completed":
+        raise AssertionError(f"/debug/profile task: {t}")
+    path = f"{task['trace_dir']}/trace.json"
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = sum(1 for e in kernels if "pass_a" in e.get("name", "")
+               or "gather_dist" in e.get("name", ""))
+    print(f"phase server: /debug/profile?seconds={PROFILE_S} under {n} HTTP "
+          f"searches: {path}, {len(events)} events, {len(kernels)} CUDA "
+          f"kernel records ({ours} of the port's pass A and "
+          f"gather-distance) [{card}]", flush=True)
+    if not kernels or not ours:
+        raise AssertionError("the /debug/profile trace holds no CUDA "
+                             "kernel records of the port's kernels")
+    import shutil
+    shutil.rmtree(task["trace_dir"], ignore_errors=True)
+    return {"events": len(events), "kernels": len(kernels), "ours": ours}
+
+
+def cli_env() -> dict:
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("KEKTOR_PORT", "KEKTOR_DATA_DIR", "KEKTOR_TOKEN",
+              "KEKTOR_CONFIG", "KEKTOR_COORDINATOR", "KEKTOR_PROCESS_ID",
+              "KEKTOR_NUM_PROCESSES", "KEKTOR_EMBEDDER_URL"):
+        env.pop(k, None)
+    return env
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 18(d): `python -m kektordb_tpu_torch serve` as a subprocess on
+    the card with a data dir under build/: /healthz, create, add and
+    search over HTTP, SIGTERM, a second start, every acknowledged vector
+    read back bit-equal; then `python -m kektordb_tpu_torch mcp` over
+    stdio: initialize, 61 tools, a vector tool call. Every process it
+    starts is stopped."""
+    import os
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    import requests
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_", dir="build")
+    rng = np.random.default_rng(CLI_SEED)
+    X = rng.normal(size=(CLI_N, DIM)).astype(np.float32)
+    out = {}
+
+    def start():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m", "kektordb_tpu_torch", "serve", "--host",
+             "127.0.0.1", "--port", str(port), "--data-dir", root,
+             "--device", DEV, "--log-level", "warning"], env=cli_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        base = f"http://127.0.0.1:{port}"
+        while time.perf_counter() - t0 < CLI_START_S:
+            if p.poll() is not None:
+                raise AssertionError(f"serve exited: {p.stdout.read()}")
+            try:
+                if requests.get(base + "/healthz",
+                                timeout=2).status_code == 200:
+                    return p, base, time.perf_counter() - t0
+            except requests.ConnectionError:
+                time.sleep(0.25)
+        p.kill()
+        p.wait()
+        raise AssertionError("serve did not answer /healthz")
+
+    def stop(p):
+        p.send_signal(signal.SIGTERM)
+        try:
+            log, _ = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise AssertionError("serve did not stop on SIGTERM")
+        if p.returncode != 0 or "Traceback" in log:
+            raise AssertionError(f"serve exited {p.returncode}: {log[-2000:]}")
+
+    procs = []
+    try:
+        p, base, up1 = start()
+        procs.append(p)
+        r = requests.post(base + "/vector/actions/create", json={
+            "index_name": "cli", "metric": "euclidean"}, timeout=60)
+        if r.status_code != 200:
+            raise AssertionError(f"create: {r.text}")
+        r = requests.post(base + "/vector/actions/add-batch", json={
+            "index_name": "cli", "vectors": [
+                {"id": f"c{i}", "vector": X[i].tolist()}
+                for i in range(CLI_N)]}, timeout=600)
+        if r.status_code != 200:
+            raise AssertionError(f"add-batch: {r.text}")
+        r = requests.post(base + "/vector/actions/search", json={
+            "index_name": "cli", "query_vector": X[17].tolist(), "k": 1},
+            timeout=60)
+        if r.json().get("ids") != ["c17"]:
+            raise AssertionError(f"search: {r.text}")
+        stop(p)
+        p, base, up2 = start()
+        procs.append(p)
+        r = requests.post(base + "/vector/actions/get-vectors", json={
+            "index_name": "cli", "ids": [f"c{i}" for i in range(CLI_N)]},
+            timeout=120)
+        got = {v["id"]: v["vector"] for v in r.json()}
+        back = np.array([got.get(f"c{i}", [np.nan] * DIM)
+                         for i in range(CLI_N)], np.float32)
+        if not np.array_equal(back, X):
+            raise AssertionError("an acknowledged vector did not read back "
+                                 "bit-equal after the restart")
+        stop(p)
+        reqs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                 "params": {}},
+                {"jsonrpc": "2.0", "id": 2, "method": "tools/list"},
+                {"jsonrpc": "2.0", "id": 3, "method": "tools/call",
+                 "params": {"name": "save_memory",
+                            "arguments": {"content": "the H100 smoke"}}},
+                {"jsonrpc": "2.0", "id": 4, "method": "tools/call",
+                 "params": {"name": "list_vectors", "arguments": {}}}]
+        t0 = time.perf_counter()
+        m = subprocess.run(
+            [sys.executable, "-m", "kektordb_tpu_torch", "mcp",
+             "--device", DEV, "--log-level", "warning"], env=cli_env(),
+            input="".join(json.dumps(q) + "\n" for q in reqs),
+            capture_output=True, text=True, timeout=CLI_START_S)
+        mcp_s = time.perf_counter() - t0
+        if m.returncode != 0:
+            raise AssertionError(f"mcp exited {m.returncode}: {m.stderr}")
+        resp = [json.loads(line) for line in m.stdout.splitlines()]
+        tools = resp[1]["result"]["tools"]
+        saved = json.loads(resp[2]["result"]["content"][0]["text"])
+        listed = json.loads(resp[3]["result"]["content"][0]["text"])
+        if len(tools) != 61 or saved["id"] not in listed["ids"]:
+            raise AssertionError(f"mcp: {len(tools)} tools, {listed}")
+        print(f"phase server: `python -m kektordb_tpu_torch serve` with a "
+              f"data dir: /healthz after {up1:.3f} s, {CLI_N} x {DIM} "
+              f"added and searched over HTTP, SIGTERM, restarted (/healthz "
+              f"after {up2:.3f} s), {CLI_N} vectors read back bit-equal; "
+              f"`mcp` over stdio: {len(tools)} tools, save_memory + "
+              f"list_vectors answered, {mcp_s:.3f} s in all [{card}]",
+              flush=True)
+        out = {"serve_up_s": [up1, up2], "mcp_s": mcp_s}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def server_phase(torch, main: dict, card: str) -> dict:
+    """Phase 18: (a) make_app over an Engine on the card, with the
+    gardener, on 127.0.0.1:0: every step of testdata/contracts.json;
+    (b) phase 4's index over HTTP (`http_reads`); (c) /debug/profile
+    (`profile_route`); (d) the CLI as a subprocess (`cli_phase`)."""
+    from kektordb_tpu_torch.services.embeddings import HashingEmbedder
+    from kektordb_tpu_torch.services.gardener import Gardener, GardenerConfig
+    eng = main["eng"]
+    gardener = Gardener(eng, config=GardenerConfig(),
+                        embedder=HashingEmbedder())
+    srv = ServedApp(eng, gardener=gardener)
+    try:
+        t0 = time.perf_counter()
+        n = run_contracts(srv.base)
+        print(f"phase server: make_app over Engine(device={DEV!r}) on "
+              f"{srv.base}: all {n} steps of testdata/contracts.json pass "
+              f"in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        reads = http_reads(torch, eng, srv.base, main["queries"], card)
+        prof = profile_route(torch, srv.base, main["queries"], card)
+    finally:
+        srv.stop()
+    eng.close()
+    del main["eng"]
+    cli = cli_phase(card)
+    return {"contracts": n, "reads": reads, "profile": prof, "cli": cli}
 
 
 def main() -> int:
@@ -2322,11 +3142,11 @@ def main() -> int:
         if "registers" in ln or "spill" in ln:
             print(f"phase build: {ln.strip()}", flush=True)
 
+    from kektordb_tpu_torch.ops import scan as scan_forms
     max_err = check_kernels(torch)
     check_pass_b(torch, card)
     main = main_path(torch, card)
     exact = exact_phase(torch, main, card)
-    del main["eng"]
     head = time_pass_a(torch, card)
     max_err = max(max_err, head["max_abs_err"])
     print(f"phase times: ingest {main['ingest_s']:.3f} s, Engine.search "
@@ -2342,10 +3162,13 @@ def main() -> int:
     bf16 = graph_bf16_phase(torch, card)
     int8 = int8_phase(torch, card)
     proj = proj_phase(torch, card)
+    host = host_phase(torch, main, proj, card)
+    server = server_phase(torch, main, card)
 
     leaked = [m for m in sys.modules
-              if m in ("jax", "jaxlib", "kektordb_tpu")
-              or m.startswith(("jax.", "jaxlib.", "kektordb_tpu."))]
+              if m in ("jax", "jaxlib", "kektordb_tpu", "ml_dtypes")
+              or m.startswith(("jax.", "jaxlib.", "kektordb_tpu.",
+                               "ml_dtypes."))]
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked}")
     print(f"phase times: persistence at {GRAPH_N} x {DIM}: save "
@@ -2356,6 +3179,15 @@ def main() -> int:
           f"{proj['qps']:.1f} QPS at recall@{K} {proj['recall']:.4f} "
           f"(full-dimension {proj['full_qps']:.1f} QPS at "
           f"{proj['full_recall']:.4f}) [{card}]", flush=True)
+    print(f"phase times: host arena at {N_BASE} x {DIM}: default (projected) "
+          f"{host['auto']['qps']:.1f} QPS at recall@{K} "
+          f"{host['auto']['recall']:.4f}, full dimension "
+          f"{host['full']['qps']:.1f} QPS at {host['full']['recall']:.4f}, "
+          f"H2D {host['full']['parts']['sweep_gbs']:.2f} GB/s against the "
+          f"bare pinned copy's {host['full']['parts']['link_gbs']:.2f}; "
+          f"HTTP plain {server['reads']['qps']['plain']:.1f}, columnar "
+          f"{server['reads']['qps']['columnar']:.1f}, b64 "
+          f"{server['reads']['qps']['b64']:.1f} QPS [{card}]", flush=True)
     print(f"phase total: {time.perf_counter() - t_start:.1f} s [{card}]",
           flush=True)
     # no single PyTorch call computes any of these kernels' functions
@@ -2372,7 +3204,17 @@ def main() -> int:
             "phase 15, compressed int8 read (form 5)":
                 persist["int8_launches"],
             "phase 16, projected read (bf16 form, D=32)":
-                proj["pass_a_launches"]},
+                proj["pass_a_launches"],
+            "phase 17, host sweep, full dimension (form 1)":
+                host["full"]["counts"]["scan_pass_a"],
+            "phase 17, host sweep, projected mirror (form 5, D=32)":
+                host["auto"]["counts"]["scan_pass_a"],
+            "phase 17, host sweep, int8 (form 3)":
+                host["span"]["int8"]["counts"]["scan_pass_a"],
+            "phase 17, host sweep, bf16 (form 2)":
+                host["span"]["bf16"]["counts"]["scan_pass_a"],
+            "phase 18, HTTP reads of phase 4's index":
+                server["reads"]["counts"]["scan_pass_a"]},
         "max_abs_err": max(max_err, path_errs["scan_pass_a"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2427,6 +3269,10 @@ def main() -> int:
             "beam on the reopened indexes (phase 15)":
                 persist["beam_launches"],
             "projected re-rank (phase 16)": proj["gather_launches"],
+            "host sweep re-rank, full dimension (phase 17)":
+                host["full"]["counts"]["gather_dist"],
+            "HTTP reads of phase 4's index (phase 18)":
+                server["reads"]["counts"]["gather_dist"],
             "beam after optimize_layout (phase 12)":
                 bf16["layout"]["beam_launches"]},
         "chunk_share_bf16_build": bf16["chunk_gather_share"]}]
@@ -2454,6 +3300,41 @@ def main() -> int:
         "plain_ms": ga["plain_ms"], "bound_ms": ga["bound_ms"],
         "bound_by": ga["bound_by"], "library_ms": None,
         "issue_ms": ga["issue_ms"], "timed_at": ga["shape"]}]
+    # the host sweep's shapes (phase 17): form 1 over one streamed chunk
+    # and its re-rank's gather-distance, form 5 over the projected mirror
+    # at B=BATCH and PROJ_B; launches on the sweep that runs each
+    fl = {n: host[n]["counts"]["scan_pass_a forms"]
+          for n in ("full", "auto", "aniso_proj")}
+    for f, launches, path in (
+            (host["form1"], fl["full"][scan_forms.FORM_F32_FAST],
+             "phase 17, host sweep, full dimension"),
+            (host["form5"], fl["auto"][scan_forms.FORM_ASYM_FAST],
+             "phase 17, host sweep, projected mirror (default index)"),
+            (host["form5_b1024"], fl["aniso_proj"][scan_forms.FORM_ASYM_FAST],
+             "phase 17, host sweep, anisotropic projected")):
+        kernels.append({
+            "name": f"scan_pass_a form {f['form']} (host sweep, "
+                    f"B={f['shape'][0]}, D={f['shape'][2]})",
+            "route": "cuda",
+            "source": "kektordb_tpu_torch/csrc/scan_pass_a_wgmma.cu",
+            "replaces": "kektordb_tpu/ops/scan.py:175",
+            "launches": launches, "launches_path": path,
+            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": None,
+            "issue_ms": f["issue_ms"], "timed_at": f["shape"]})
+    hg = host["gather"]
+    kernels.append({
+        "name": "gather_dist (host sweep re-rank)", "route": "cuda",
+        "source": "kektordb_tpu_torch/csrc/gather_dist.cu",
+        "replaces": "scripts/pallas_gather.py:120, "
+                    "scripts/pallas_gather2.py:170",
+        "launches": host["full"]["counts"]["gather_dist"],
+        "launches_path": "phase 17, host sweep, full dimension",
+        "max_abs_err": hg["max_abs_err"], "ms": hg["ms"],
+        "plain_ms": hg["plain_ms"], "bound_ms": hg["bound_ms"],
+        "bound_by": hg["bound_by"], "library_ms": None,
+        "issue_ms": hg["issue_ms"], "timed_at": hg["shape"]})
     for name, replaces in (("scan_vT", "scripts/matmul_ceiling.py:90"),
                            ("scan_reduce", "scripts/scan_pallas_proto.py:46")):
         pr = probes[name]

@@ -17,11 +17,11 @@ applied in memory; `open` loads the newest checkpoint
 `save_snapshot` writes a checkpoint and empties the journal (`close`,
 `import_batch` and the background loop call it).
 
-Not ported yet, and refused with NotImplementedError (ROADMAP.md, queue 1,
-item numbers in the messages): sharded indexes (`shards > 1`) and
-host-arena indexes (`kind="host"`). A journal or checkpoint written with
-shards opens unsharded, as the JAX package opens it on a host with fewer
-devices.
+Index kinds: "hnsw" (the default), "flat" and "host" (a host-RAM arena
+swept in streamed chunks, index/hostarena.py). Not ported yet, and refused
+with NotImplementedError (ROADMAP.md, queue 1, item 12): sharded indexes
+(`shards > 1`). A journal or checkpoint written with shards opens
+unsharded, as the JAX package opens it on a host with fewer devices.
 """
 
 from __future__ import annotations
@@ -37,10 +37,12 @@ from dataclasses import asdict, dataclass
 from typing import Any, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .. import device as devlib
 from ..index.base import IDMap
 from ..index.bruteforce import BruteForceIndex
+from ..index.hostarena import HostArenaIndex
 from ..index.hnsw import (SERVE_MODES, HNSWConfig, HNSWIndex,
                           check_supported)
 from ..ops import distance as dist
@@ -200,7 +202,10 @@ class Engine:
                      serve_proj_rerank: int = 128,
                      _journal: bool = True) -> None:
         """VCREATE. Duplicate names are an error. Kinds "hnsw" (serve_mode
-        "auto", "scan" or "beam") and "flat" are ported."""
+        "auto", "scan" or "beam"), "flat" and "host". serve_proj_dim=None
+        is unset: off for hnsw, "auto" for a host arena (its projected
+        mirror switches on once the arena outgrows one streamed chunk); an
+        explicit 0 forces the full-dimension sweep."""
         with self._lock:
             if name in self.indexes:
                 raise KeyError(f"index already exists: {name}")
@@ -210,11 +215,14 @@ class Engine:
                 raise ValueError(f"unknown metric {metric!r}")
             if precision not in dist.PRECISIONS:
                 raise ValueError(f"unknown precision {precision!r}")
-            if kind == "host":
-                raise NotImplementedError(
-                    "kind='host' (index/hostarena) is not ported yet "
-                    "(ROADMAP.md, queue 1, item 10)")
             if shards > 1:
+                # a CPU mesh is one gloo process per core (item 12)
+                visible = torch.cuda.device_count() \
+                    if self.device.type == "cuda" else os.cpu_count() or 1
+                if shards > visible:
+                    raise ValueError(
+                        f"shards={shards} but only {visible} devices are "
+                        "visible")
                 raise NotImplementedError(
                     "shards > 1 (parallel/sharded) is not ported yet "
                     "(ROADMAP.md, queue 1, item 12)")
@@ -227,6 +235,7 @@ class Engine:
                 check_supported(cfg)
             # the dimension is fixed by the first add
             lazy = _LazyIndex(metric, precision, cfg, kind=kind)
+            lazy.proj_request = serve_proj_dim
             if _journal:
                 self._journal("VCREATE", name, metric, precision,
                               json.dumps({"m": m,
@@ -266,7 +275,9 @@ class Engine:
                                       "serve_mode", ""),
                 "shards": 0,
                 "config": asdict(idx.config) if hasattr(idx, "config")
-                else {},
+                else {k: getattr(idx, k)
+                      for k in ("chunk_rows", "proj_dim", "proj_rerank")
+                      if hasattr(idx, k)},
                 "memory": asdict(h.memory),
                 "memory_report": idx.memory_report()
                 if hasattr(idx, "memory_report") else {},
@@ -309,6 +320,14 @@ class Engine:
                 h.auto_links = [AutoLinkRule(**r)
                                 for r in config["auto_links"]]
             if icfg is None:
+                if isinstance(h.index, HostArenaIndex):
+                    # the host arena's knobs are attributes; a new p drops
+                    # the mirror (same rule as the constructor: f32 only)
+                    if "serve_proj_dim" in config:
+                        h.index.reset_projection(config["serve_proj_dim"])
+                    if "serve_proj_rerank" in config:
+                        h.index.proj_rerank = max(
+                            1, int(config["serve_proj_rerank"]))
                 return
             if "ef_search" in config:
                 icfg.ef_search = int(config["ef_search"])
@@ -483,6 +502,14 @@ class Engine:
         if lazy.kind == "flat":
             h.index = BruteForceIndex(dim, lazy.metric, lazy.precision,
                                       device=self.device)
+        elif lazy.kind == "host":
+            # host-RAM arena + chunk-streamed device scan
+            req = getattr(lazy, "proj_request", lazy.config.serve_proj_dim)
+            h.index = HostArenaIndex(
+                dim, lazy.metric, lazy.precision,
+                proj_dim="auto" if req is None else req,
+                proj_rerank=lazy.config.serve_proj_rerank,
+                device=self.device)
         else:
             h.index = HNSWIndex(dim, lazy.metric, lazy.precision, lazy.config,
                                 device=self.device)
@@ -496,6 +523,13 @@ class Engine:
             lc = h.memory.layers[layer]
             if lc.pinned_by_default and fusion.PINNED_KEY not in meta:
                 meta[fusion.PINNED_KEY] = True
+
+    def _live_rows(self, h: IndexHandle) -> set[int]:
+        """The rows that hold a vector (the server's and MCP's listings)."""
+        ids = getattr(h.index, "ids", None)
+        if ids is None:
+            return set()
+        return set(ids.ext_to_row.values())
 
     def _row_of(self, h: IndexHandle, ext_id: str) -> Optional[int]:
         return h.index.ids.get(ext_id)
@@ -1284,11 +1318,6 @@ class Engine:
         for name, st in (state.get("indexes") or {}).items():
             if st.get("lazy"):
                 kind = st.get("kind", "hnsw")
-                if kind == "host":
-                    raise NotImplementedError(
-                        f"checkpoint index {name!r} is of kind 'host' "
-                        "(index/hostarena), which is not ported yet "
-                        "(ROADMAP.md, queue 1, item 10)")
                 if int(st.get("shards", 0)) > 1:
                     log.warning("checkpoint: index %s was created with "
                                 "shards=%s; it opens unsharded", name,

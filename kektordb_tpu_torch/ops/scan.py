@@ -285,12 +285,12 @@ def _scan_kernel(q, vectors, biasA, biasB, k: int, *, exact: bool = False,
 
 
 def _block_dots(q, blk):
-    """Exact-scan dots: int8 x int8 in the integer domain, float x int8
-    codes and f32 in full f32, bf16 with f32 accumulation."""
+    """Exact-scan dots: int8 x int8 in the integer domain, everything else
+    in full f32 of the values as given (a bf16 arena's rows are exact in
+    f32; an f32 query against them stays f32, as the reference's
+    `dot_general` promotes it)."""
     if blk.dtype == torch.int8 and q.dtype == torch.int8:
         return dist.int_dots(q, blk)
-    if blk.dtype == torch.bfloat16:
-        return q.to(torch.bfloat16).float() @ blk.float().T
     return q.float() @ blk.float().T
 
 
@@ -384,7 +384,10 @@ def scan_search(
             rows = torch.gather(rows, 1, order)
             rows = torch.where(torch.isinf(d), -1, rows)
             return torch.clamp_min(d, 0.0), rows
-        s, rows = _scan_kernel(q, vectors, biasA, biasB, k,
+        # a bf16 arena's pass A takes the query in bf16; the distances
+        # below keep |q|^2 of the query as given
+        qk = q.to(torch.bfloat16) if vectors.dtype == torch.bfloat16 else q
+        s, rows = _scan_kernel(qk, vectors, biasA, biasB, k,
                                exact=mode == "exact", fast=fast)
     else:
         s, rows = _scan_blocked(q, vectors, biasA, biasB, k)

@@ -7,7 +7,9 @@ Kinds: "hnsw" (the GraphState leaves) and "flat" (the brute-force
 arena). A "sharded" checkpoint (per-shard hnsw states and a global id
 map) opens as one unsharded index, as the JAX package opens it on a host
 with fewer devices than shards: every live vector is added again. Kind
-"host" is not ported yet.
+"host" (the host-RAM arena) keeps the JAX package's keys: "vectors",
+"norms" and "valid" arrays (bf16 as "<k>::bf16", checkpoint.py) and the
+projection's knobs in the state; the mirror itself is derived and refit.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from .. import device as devlib
 from ..index import hnsw_kernels as K
 from ..index.bruteforce import BruteForceIndex
+from ..index.hostarena import HostArenaIndex
 from ..index.hnsw import HNSWConfig, HNSWIndex
 from ..ops import quantize as quant
 
@@ -36,6 +39,21 @@ def _quantizer_state(idx) -> dict[str, Any]:
 
 def dump_index(idx, name: str, arrays: dict[str, Any]) -> dict[str, Any]:
     """Put the index's tensors into `arrays` and return its host state."""
+    if isinstance(idx, HostArenaIndex):
+        arrays[f"{name}/vectors"] = idx._vectors
+        arrays[f"{name}/norms"] = idx._norms
+        arrays[f"{name}/valid"] = idx._valid
+        return {
+            "kind": "host",
+            "metric": idx.metric, "precision": idx.precision,
+            "dim": idx.dim,
+            "proj_dim": idx.proj_dim, "proj_rerank": idx.proj_rerank,
+            "proj_auto": idx._proj_auto,
+            "ext_to_row": dict(idx.ids.ext_to_row),
+            "free": list(idx.ids.free),
+            "rows": len(idx.ids.row_to_ext),
+            "quantizer": _quantizer_state(idx),
+        }
     if isinstance(idx, BruteForceIndex):
         arrays[f"{name}/vectors"] = idx._vectors
         arrays[f"{name}/norms"] = idx._norms
@@ -104,10 +122,9 @@ def load_index(st: dict[str, Any], arrays: dict[str, torch.Tensor],
                     name, st["n_shards"])
         return _merge_sharded_to_single(st, arrays, name, device)
     if kind == "host":
-        raise NotImplementedError(
-            f"checkpoint index {name!r} is of kind 'host' "
-            "(index/hostarena), which is not ported yet "
-            "(ROADMAP.md, queue 1, item 10)")
+        return HostArenaIndex.from_reference_state(
+            st, {leaf: arrays[f"{name}/{leaf}"]
+                 for leaf in ("vectors", "norms", "valid")}, device=device)
     q = st["quantizer"]
     if kind == "flat":
         idx = BruteForceIndex(st["dim"], st["metric"], st["precision"],

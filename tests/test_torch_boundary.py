@@ -4,8 +4,10 @@ The port must never import JAX or any module of the JAX package, not even
 one that does not import JAX: on a GPU machine a JAX backend would start
 and take the card's memory, and the port keeps its own copies of what it
 needs. This test process imports JAX already (tests/conftest.py), so the
-boundary is checked in a fresh interpreter that runs a filtered, a
-hybrid (text_query) and a decayed search."""
+boundary is checked in a fresh interpreter that imports the server, the
+services, the CLI and the host arena, and runs a filtered, a hybrid
+(text_query), a decayed and a host-index search; neither JAX, ml_dtypes
+nor the JAX package may be loaded after it."""
 
 import os
 import subprocess
@@ -18,13 +20,21 @@ import torch
 from kektordb_tpu_torch import device as devlib
 from kektordb_tpu_torch.engine import Engine, EngineConfig
 from kektordb_tpu_torch.index import BruteForceIndex, HNSWConfig, HNSWIndex
+from kektordb_tpu_torch.index.hostarena import HostArenaIndex
 
 ROOT = Path(__file__).resolve().parent.parent
 
 _CHILD = """
 import sys
 import numpy as np
+import kektordb_tpu_torch.__main__
+import kektordb_tpu_torch.server
+import kektordb_tpu_torch.server.mcp
+import kektordb_tpu_torch.services.embeddings
+import kektordb_tpu_torch.services.gardener
+import kektordb_tpu_torch.services.rag
 from kektordb_tpu_torch.engine import Engine, EngineConfig
+from kektordb_tpu_torch.index.hostarena import HostArenaIndex
 e = Engine(EngineConfig(device="cpu", start_background=False)).open()
 e.create_index("i", kind="hnsw", serve_mode="scan")
 X = np.random.default_rng(0).normal(size=(300, 16)).astype(np.float32)
@@ -41,10 +51,16 @@ e.configure_index("i", {"memory": {"enabled": True,
                                    "decay_half_life": 3600.0}})
 hits = e.search("i", X[:2], k=3)
 assert hits[0][0]["id"] == "v0" and e.indexes["i"].decay_dev, hits
+e.create_index("h", kind="host")
+e.add_batch("h", [f"h{j}" for j in range(300)], X)
+hits = e.search("h", X[5:7], k=2)
+assert hits[0][0]["id"] == "h5" and hits[1][0]["id"] == "h6", hits
+assert isinstance(e.indexes["h"].index, HostArenaIndex)
 e.close()
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "kektordb_tpu")
-             or m.startswith(("jax.", "jaxlib.", "kektordb_tpu.")))
+             if m in ("jax", "jaxlib", "kektordb_tpu", "ml_dtypes")
+             or m.startswith(("jax.", "jaxlib.", "kektordb_tpu.",
+                              "ml_dtypes.")))
 print("LEAKED", bad)
 sys.exit(1 if bad else 0)
 """
@@ -90,6 +106,7 @@ def test_chip_smoke_alone_fails(tmp_path):
     lambda: HNSWIndex(8, config=HNSWConfig(serve_mode="scan")),
     lambda: BruteForceIndex(8),
     lambda: Engine(EngineConfig()),
+    lambda: HostArenaIndex(8),
 ])
 def test_cuda_default_raises_without_cuda(make, monkeypatch):
     """The default device is "cuda"; without a card it raises instead of

@@ -135,13 +135,13 @@ def test_engine_host_surface():
 
 # (call, ported): serve_mode "auto" and "beam" came with the graph slice,
 # text_query with the fusion slice, data_dir and serve_proj_dim with the
-# persistence slice, and now run; the rest still raise, naming their
-# ROADMAP item
+# persistence slice, kind="host" with the host-arena slice, and now run;
+# the rest still raise, naming their ROADMAP item
 @pytest.mark.parametrize("call,ported", [
     (lambda e: Engine(EngineConfig(device="cpu", data_dir="/nonexistent")),
      True),
     (lambda e: e.create_index("s", shards=2, serve_mode="scan"), False),
-    (lambda e: e.create_index("h", kind="host"), False),
+    (lambda e: e.create_index("h", kind="host"), True),
     (lambda e: e.create_index("a"), True),               # serve_mode="auto"
     (lambda e: e.create_index("b", serve_mode="beam"), True),
     (lambda e: e.create_index("p", serve_mode="scan", serve_proj_dim=8),
@@ -158,7 +158,7 @@ def test_deferred_options_raise(call, ported):
         eng.close()
         return
     call(eng)
-    name = eng.list_indexes()[0]       # "a", "b" or "p" (before "t"), or "t"
+    name = eng.list_indexes()[0]   # "a", "b", "h" or "p" (before "t"), or "t"
     eng.add(name, "x", np.full(4, 3.0))
     assert eng.search(name, np.full(4, 3.0), k=1)[0][0]["id"] == "x"
     eng.close()

@@ -304,22 +304,35 @@ def test_rejected_op_not_journaled(tmp_path, clock):
 
 @pytest.mark.parametrize("mode", ["ckpt", "journal"])
 def test_host_kind_data_dir_refused(tmp_path, clock, mode):
-    """A data dir holding a `kind="host"` index (not ported) does not open:
-    loud, naming its ROADMAP item; a failed open leaves no journal writer
-    running."""
+    """A data dir holding a `kind="host"` index of the reference. It was
+    refused until the host arena was ported (ROADMAP.md item 10); now it
+    opens, from a checkpoint or by replay, with the writer's vectors and
+    reads, and a later checkpoint of the port opens in the reference."""
     w = ref(tmp_path)
     w.create_index("h", kind="host")
     w.add_batch("h", ["a", "b"], np.eye(2, 8, dtype=np.float32))
+    want = w.search("h", np.eye(2, 8, dtype=np.float32), k=2)
     clock[0] += 1.0
     if mode == "ckpt":
         w.close()
     else:
         crash(w)
-    e = Engine(EngineConfig(device="cpu", data_dir=str(tmp_path),
-                            start_background=False))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        e.open()
-    assert e._aof is None and not e._opened
+    e = port(tmp_path)
+    assert e._opened and e.indexes["h"].index.__class__.__name__ \
+        == "HostArenaIndex"
+    got = e.search("h", np.eye(2, 8, dtype=np.float32), k=2)
+    assert [[h["id"] for h in q] for q in got] == \
+        [[h["id"] for h in q] for q in want]
+    np.testing.assert_array_equal(e.indexes["h"].index.get_vector("b"),
+                                  np.eye(2, 8, dtype=np.float32)[1])
+    clock[0] += 1.0
+    e.close()
+    r = ref(tmp_path)
+    assert [[h["id"] for h in q] for q in r.search(
+        "h", np.eye(2, 8, dtype=np.float32), k=2)] == \
+        [[h["id"] for h in q] for q in want]
+    clock[0] += 1.0
+    r.close()
 
 
 def test_unopened_engine_writes_no_checkpoint(tmp_path, clock):
