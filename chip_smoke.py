@@ -184,14 +184,41 @@ Phases, one line each; any failure exits non-zero:
             -m kektordb_tpu_torch serve` with a data dir (create, add,
             search, SIGTERM, restart, every vector read back bit-equal)
             and `mcp` over stdio (61 tools, a vector tool call)
+ 19 minilm  the MiniLM encoder (services/minilm.py) at all-MiniLM-L6-v2's
+            widths (vocab 30,522, dim 384, 6 layers, 12 heads,
+            intermediate 1,536), seeded random weights, a word-hash
+            tokenizer: B=256 at T=128 and B=64 at T=256, mean and CLS
+            pooling: embeddings/s (encode, and the forward alone), the
+            first 64 rows held to the port's CPU forward (max|err| <=
+            1e-5); then MiniLMEmbedder on the card feeds a 4,096-document
+            cosine Engine index and 64 texts return their own documents
+ 20 shards  with KEKTOR_TORCH_DEVICE_REPEAT=4 (cuda:0 four times): (a)
+            phase 4's rows through Engine.create_index(shards=4), scan:
+            QPS beside phase 4's, recall@10 >= 0.99, pass A exactly 4
+            launches a search; scan_exact against phase 13's ids (ties and
+            at most 1% group-collision places excused); a filtered search;
+            pass A and the re-rank held at one shard's shape; (b) a
+            sharded graph index of 4 x 25,000 rows: build launches per
+            chunk, beam recall@10 no more than 0.01 below one index's
+            over the same rows; the projected scan (p=32, one
+            basis for all shards) recall >= 0.90; an int8 cosine index of
+            the 1M rows, one quantizer for all shards, form 3 once per
+            shard and search, recall >= 0.99 against the exact scan of the
+            same codes; (c) the Engine with shards=4 and a data dir:
+            add with text, hybrid search, deletes, checkpoint, a reopen
+            that comes back sharded, every vector bit-equal; (d) two
+            processes on the card in one gloo group (2 replicas x 2
+            shards, 280,000 rows): ReplicatedServing.search QPS, the ids
+            of the single-process sharded search, verify_replicas equal;
+            every child with a timeout
 Kernel times are the card's own: the timed calls queue behind a sleep
 kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
 host's issue time per call is printed beside each. Each path of phases
-7 to 18 (the build, the scan search, the beam, vacuum, import, the two
+7 to 20 (the build, the scan search, the beam, vacuum, import, the two
 probes, the hybrid and decayed searches, the bf16 build and beam, the
 exact and int8 searches, the journaled adds, the beams on reopened
 indexes, the compressed and projected reads, the host sweeps, the HTTP
-reads) runs with every launch
+reads, the sharded reads and build) runs with every launch
 count set to 0 just
 before it; its counts (pass A's also by form) are read and printed just
 after, and a kernel (or pass-A form) the path runs must have launched.
@@ -307,6 +334,23 @@ HOST_SPAN_N = 300_000
 HTTP_PLAIN, HTTP_PLAIN_B, HTTP_COL, HTTP_COL_B = 16, 512, 8, 2048
 HTTP_SINGLE, PROFILE_S = 64, 1
 CLI_N, CLI_SEED, CLI_START_S = 2000, 1241, 240
+# phase 19: all-MiniLM-L6-v2's widths (its config.json), seeded random
+# weights; the (B, T) batch shapes (T = 256 is the encoder's MAX_LEN); the
+# rows held to the CPU forward, and the tolerance (f32 both, TF32 off);
+# the documents of the Engine check
+MINILM = dict(vocab_size=30522, dim=384, n_layers=6, n_heads=12,
+              intermediate=1536, max_pos=512)
+MINILM_SEED, MINILM_REPS, MINILM_DOCS = 1250, 5, 4096
+MINILM_SHAPES = ((256, 128), (64, 256))
+MINILM_CHECK_ROWS, MINILM_ATOL = 64, 1e-5
+# phase 20: shards on one card (the device-repeat setting); the graph
+# index's rows; the sharded Engine's rows with text; the replicas: two
+# processes of two shards each, over REPLICA_N of phase 4's rows (past
+# 250,000 so that both shards of a replica reach the kernel route's 2^17)
+SHARDS, SHARD_GRAPH_N, SHARD_BEAM_SLACK = 4, 4 * 25_000, 0.01
+SHARD_ENGINE_N, SHARD_ENGINE_SEED = 20_000, 1251
+REPLICAS, REPLICA_SHARDS, REPLICA_N = 2, 2, 280_000
+REPLICA_SEARCHES, CHILD_TIMEOUT_S = 4, 300
 # phase 12: rows of the bf16 default index
 BF16_N, BF16_SEED = 500_000, 1237
 LAYOUT_SAME_MIN = 0.99
@@ -755,7 +799,8 @@ def exact_phase(torch, main: dict, card: str) -> dict:
         raise AssertionError(f"exact recall {recall} < {RECALL_MIN}")
     eng.configure_index("sift", {"scan_exact": False})   # phase 18 serves it
     return {"qps": qps, "recall": recall,
-            "launches": counts["scan_pass_a forms"][scan.FORM_F32]}
+            "launches": counts["scan_pass_a forms"][scan.FORM_F32],
+            "first": results[0]}
 
 
 def time_pass_a(torch, card: str) -> dict:
@@ -2799,6 +2844,24 @@ def run_contracts(base: str) -> int:
     return len(steps)
 
 
+def id_agreement(want_ids, want_d, got_ids) -> tuple[int, int]:
+    """Two reads' ids, place by place: (places that differ where two
+    adjacent distances of `want` tie within RTOL, places that differ
+    otherwise)."""
+    ties = other = 0
+    for wi, wd, gi in zip(want_ids, want_d, got_ids):
+        for j, (a, c) in enumerate(zip(wi, gi)):
+            if a == c:
+                continue
+            tol = RTOL * (abs(wd[j]) + 1.0)
+            if any(0 <= i < len(wd) and abs(wd[i] - wd[j]) <= tol
+                   for i in (j - 1, j + 1)):
+                ties += 1
+            else:
+                other += 1
+    return ties, other
+
+
 def same_ids(want_ids, want_d, got_ids, label: str) -> int:
     """Per query, the ids of an HTTP answer against Engine.search's for the
     same queries: equal, except where two adjacent distances of the
@@ -3122,6 +3185,593 @@ def server_phase(torch, main: dict, card: str) -> dict:
     return {"contracts": n, "reads": reads, "profile": prof, "cli": cli}
 
 
+def word_hash_tokenizer(T: int):
+    """Phase 19's tokenizer: [CLS] (101), each word hashed (blake2b) into
+    the vocabulary past its first 1,000 ids, [SEP] (102); cut at T tokens,
+    padded with 0 under a 0 mask."""
+    import hashlib
+    span = MINILM["vocab_size"] - 1000
+
+    def tok(texts):
+        ids = np.zeros((len(texts), T), np.int32)
+        mask = np.zeros((len(texts), T), np.float32)
+        for i, t in enumerate(texts):
+            w = [1000 + int.from_bytes(hashlib.blake2b(
+                x.encode(), digest_size=4).digest(), "little") % span
+                 for x in t.split()[:T - 2]]
+            w = [101] + w + [102]
+            ids[i, :len(w)] = w
+            mask[i, :len(w)] = 1.0
+        return ids, mask
+    return tok
+
+
+def minilm_phase(torch, card: str) -> dict:
+    """Phase 19: the MiniLM encoder at all-MiniLM-L6-v2's widths (MINILM),
+    seeded random weights (`random_params`) through `from_params` with a
+    word-hash tokenizer, on the card. For each (B, T) of MINILM_SHAPES and
+    each pooling: MiniLMEncoder.encode timed (embeddings/s, tokenizing
+    included) and the forward alone on ids already on the card (host
+    clock over MINILM_REPS calls ending in a synchronize: the calls wait on
+    the card, so `probes.timed` could not keep the host ahead of them);
+    the embeddings finite,
+    of norm 1, and the first MINILM_CHECK_ROWS held to the port's CPU
+    forward on the same weights and ids within MINILM_ATOL (f32 both, TF32
+    off; each row depends on its own ids only). Then MiniLMEmbedder over
+    the card's encoder feeds a 384-d Engine index of MINILM_DOCS texts,
+    and each of 64 texts, searched, returns its own document."""
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.services.embeddings import MiniLMEmbedder
+    from kektordb_tpu_torch.services.minilm import MiniLMEncoder
+    p = MiniLMEncoder.random_params(seed=MINILM_SEED, **MINILM)
+    rng = np.random.default_rng(MINILM_SEED)
+    out = {}
+    for B, T in MINILM_SHAPES:
+        lens = rng.integers(T // 2, 2 * T, size=B)
+        lens[0] = 2 * T                     # one text fills the T tokens
+        texts = [" ".join(f"w{x}" for x in rng.integers(0, 50_000, n))
+                 for n in lens]
+        tok = word_hash_tokenizer(T)
+        ids, mask = tok(texts)
+        for pooling in ("mean", "cls"):
+            args = dict(n_layers=MINILM["n_layers"],
+                        n_heads=MINILM["n_heads"], dim=MINILM["dim"],
+                        pooling=pooling)
+            enc = MiniLMEncoder.from_params(p, tok, device=DEV, **args)
+            got = enc.encode(texts)                            # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MINILM_REPS):
+                got = enc.encode(texts)
+            sec = (time.perf_counter() - t0) / MINILM_REPS
+            ids_d = torch.from_numpy(ids).to(DEV)
+            mask_d = torch.from_numpy(mask).to(DEV)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MINILM_REPS):
+                enc(ids_d, mask_d)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3 / MINILM_REPS
+            if got.shape != (B, MINILM["dim"]) \
+                    or not np.isfinite(got).all():
+                raise AssertionError("MiniLM: wrong shape or non-finite")
+            norm_err = float(np.abs(np.linalg.norm(got, axis=1) - 1).max())
+            cpu = MiniLMEncoder.from_params(p, tok, device="cpu", **args)
+            n = MINILM_CHECK_ROWS
+            want = cpu(ids[:n], mask[:n]).numpy()
+            err = float(np.abs(got[:n] - want).max())
+            print(f"phase minilm: B={B} T={T} {pooling} pooling: encode "
+                  f"{sec * 1e3:.3f} ms ({B / sec:.1f} embeddings/s, "
+                  f"tokenizing included), forward alone {fwd_ms:.3f} ms "
+                  f"({B / fwd_ms * 1e3:.1f} embeddings/s); |norm - 1| max "
+                  f"{norm_err:.3g}; "
+                  f"first {n} rows against the CPU forward max|err| "
+                  f"{err:.3g} (tol {MINILM_ATOL}) [{card}]", flush=True)
+            if err > MINILM_ATOL or norm_err > 1e-4:
+                raise AssertionError(f"MiniLM B={B} T={T} {pooling}: "
+                                     f"max|err| {err}, |norm - 1| "
+                                     f"{norm_err}")
+            out[f"B={B} T={T} {pooling}"] = {
+                "encode_per_s": B / sec, "forward_per_s": B / fwd_ms * 1e3,
+                "forward_ms": fwd_ms, "max_abs_err": err}
+    enc = MiniLMEncoder.from_params(
+        p, word_hash_tokenizer(32), n_layers=MINILM["n_layers"],
+        n_heads=MINILM["n_heads"], dim=MINILM["dim"], device=DEV)
+    emb = MiniLMEmbedder.from_encoder(enc)
+    docs = [f"{t} doc{i}" for i, t in
+            enumerate(zipf_texts(rng, MINILM_DOCS))]
+    t0 = time.perf_counter()
+    vecs = np.concatenate([emb.embed_batch(docs[i:i + 256])
+                           for i in range(0, MINILM_DOCS, 256)])
+    embed_s = time.perf_counter() - t0
+    eng = Engine(EngineConfig(device=DEV, start_background=False)).open()
+    eng.create_index("docs", metric="cosine")           # every default
+    _, _, counts = counted(
+        torch, "MiniLM documents into a default index",
+        lambda: eng.add_batch("docs", [f"d{i}" for i in range(MINILM_DOCS)],
+                              vecs, [{"content": d} for d in docs]), ())
+    pick = rng.choice(MINILM_DOCS, 64, replace=False)
+    hits = eng.search("docs", emb.embed_batch([docs[i] for i in pick]), k=1)
+    wrong = [int(i) for i, h in zip(pick, hits) if h[0]["id"] != f"d{i}"]
+    print(f"phase minilm: MiniLMEmbedder on the card embedded "
+          f"{MINILM_DOCS} documents in {embed_s:.3f} s "
+          f"({MINILM_DOCS / embed_s:.1f} per s, T=32) into a 384-d cosine "
+          f"index; 64 texts searched, {64 - len(wrong)} returned their own "
+          f"document [{card}]", flush=True)
+    if wrong:
+        raise AssertionError(f"MiniLM search missed documents {wrong}")
+    eng.close()
+    return out
+
+
+def shard_scan_read(torch, eng, main: dict, exact: dict, card: str) -> dict:
+    """Phase 20(a): phase 4's SIFT-1M rows in an Engine index with
+    shards=SHARDS, serve_mode "scan": Engine.search at B=BATCH, N_BATCHES
+    times (QPS beside phase 4's; pass A launched exactly SHARDS times a
+    search), recall@K against phase 4's oracle >= RECALL_MIN; with
+    scan_exact, phase 13's ids (except adjacent ties); a filtered search
+    (a global-row mask) returns only allowed rows; pass A held against its
+    plain version at one shard's shape and timed (`hold_form`), and the
+    re-rank's gather-distance held there too."""
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import scan
+    from kektordb_tpu_torch.parallel import ShardedHNSW
+    base, queries = main["base"], main["queries"]
+    eng.create_index("sift4", metric=dist.L2, serve_mode="scan",
+                     shards=SHARDS)
+    t0 = time.perf_counter()
+    eng.add_batch("sift4", [f"v{i}" for i in range(N_BASE)], base)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    idx = eng.indexes["sift4"].index
+    sizes = [len(s) for s in idx.shards]
+    if not isinstance(idx, ShardedHNSW) or sum(sizes) != N_BASE \
+            or min(s._cap for s in idx.shards) < scan.PALLAS_MIN_ROWS:
+        raise AssertionError(f"sharded index: {type(idx)} {sizes}")
+    eng.search("sift4", queries[:BATCH], k=K)              # warm
+    results, sec, counts = counted(
+        torch, f"sharded Engine.search (S={SHARDS})",
+        lambda: [eng.search("sift4", queries[i * BATCH:(i + 1) * BATCH],
+                            k=K) for i in range(N_BATCHES)],
+        ("scan_pass_a", "gather_dist"), (scan.FORM_F32_FAST,))
+    if counts["scan_pass_a"] != SHARDS * N_BATCHES:
+        raise AssertionError(f"pass A launched {counts['scan_pass_a']} "
+                             f"times in {N_BATCHES} searches of {SHARDS} "
+                             "shards")
+    qps = N_BATCHES * BATCH / sec
+    got = np.array([[int(x["id"][1:]) for x in h]
+                    for h in results[0][:RECALL_QUERIES]])
+    recall = recall_at(got, main["gt"])
+    d_err = check_distances(results[0][:RECALL_QUERIES], got, main["gt_d"],
+                            main["gt"], queries[:RECALL_QUERIES], base)
+    print(f"phase shards: {N_BASE} x {DIM} over {SHARDS} shards of "
+          f"{sizes} rows (one card, the device-repeat setting), ingest "
+          f"{ingest_s:.3f} s; Engine.search B={BATCH} k={K}: {qps:.1f} QPS "
+          f"(phase 4, one index: {main['qps']:.1f}); recall@{K} "
+          f"{recall:.4f} against phase 4's oracle (min {RECALL_MIN}); "
+          f"distances max |err| {d_err:.6g}; pass A "
+          f"{counts['scan_pass_a'] / N_BATCHES:.0f} launches a search "
+          f"[{card}]", flush=True)
+    if recall < RECALL_MIN:
+        raise AssertionError(f"sharded recall {recall} < {RECALL_MIN}")
+
+    eng.configure_index("sift4", {"scan_exact": True})
+    res_x, _, cx = counted(torch, "sharded Engine.search scan_exact",
+                           lambda: eng.search("sift4", queries[:BATCH], k=K),
+                           ("scan_pass_a",), (scan.FORM_F32,))
+    want = exact["first"]
+    ties, other = id_agreement([[h["id"] for h in q] for q in want],
+                               [[h["distance"] for h in q] for q in want],
+                               [[h["id"] for h in q] for q in res_x])
+    xgot = np.array([[int(x["id"][1:]) for x in h]
+                     for h in res_x[:RECALL_QUERIES]])
+    xrec = recall_at(xgot, main["gt"])
+    eng.configure_index("sift4", {"scan_exact": False})
+    print(f"phase shards: scan_exact B={BATCH}: against phase 13's ids (one "
+          f"index), {ties} places differ as adjacent ties, {other} of "
+          f"{BATCH * K} otherwise (max {1 - RECALL_MIN:.2f} of them: pass "
+          f"A's group collisions fall on other rows in a 2^18-row shard "
+          f"than in the 2^20-row arena); recall@{K} {xrec:.4f} against the "
+          f"oracle; form 0 launches "
+          f"{cx['scan_pass_a forms'][scan.FORM_F32]} [{card}]", flush=True)
+    if other > (1 - RECALL_MIN) * BATCH * K or xrec < RECALL_MIN:
+        raise AssertionError(f"sharded scan_exact: {other} places differ "
+                             f"from phase 13's, recall {xrec}")
+    excused = ties
+
+    allow = np.zeros(idx._cap, bool)
+    allow[idx.ids.rows_of([f"v{i}" for i in range(0, N_BASE, 100)])] = True
+    _, g = idx.search(queries[:64], K, allow_rows=allow)
+    exts = idx.ids.exts_array()[g[g >= 0]]
+    if g.min() < 0 or any(int(e[1:]) % 100 for e in exts):
+        raise AssertionError("the sharded filtered search broke its filter")
+    print(f"phase shards: filtered search (every 100th row allowed): "
+          f"{exts.size} hits, all allowed", flush=True)
+
+    sh0 = idx.shards[0]
+    q, qn, bA, bB, st, gg = path_operands(torch, sh0, queries[:BATCH])
+    held = hold_form(torch, card, f"sharded scan, one shard's shape",
+                     q, sh0.state.vectors, bA, bB, st, gg, False, fast=True)
+    _, rows = scan._scan_kernel(q, sh0.state.vectors, bA, bB, RERANK_C,
+                                fast=True)
+    err_g, ratio, _ = hold_gather(torch, "sharded re-rank",
+                                  sh0.state.vectors, rows, q, dist.L2,
+                                  corpus_norms=sh0.state.norms,
+                                  query_norms=qn)
+    print(f"phase shards: the re-rank's gather-distance at one shard's shape "
+          f"(B={BATCH}, C={rows.shape[1]}) against its plain version: "
+          f"max|err| {err_g:.6g} ({ratio:.3g} of tol)", flush=True)
+    return {"qps": qps, "recall": recall, "launches": counts["scan_pass_a"],
+            "gather_launches": counts["gather_dist"], "excused": excused,
+            "held": held, "gather_err": err_g, "ingest_s": ingest_s}
+
+
+def shard_more_reads(torch, eng, main: dict, card: str) -> dict:
+    """Phase 20(b): a sharded default (graph) index of SHARD_GRAPH_N
+    rows (ShardedHNSW, every HNSWConfig default), its build's
+    gather-distance launches per chunk, and its beam (B=BEAM_B,
+    ef_search 100) recall@K against the exact oracle over those rows, no
+    more than SHARD_BEAM_SLACK below one HNSWIndex's over the same rows
+    (100k of the generator's 1M rows leave its clusters sparse: the beam
+    of one index reaches 0.92 there, where the 1M index passes 0.95); the
+    projected scan on (a)'s index (serve_proj_dim
+    PROJ_P, rerank PROJ_RERANK, one basis for every shard: pass A's bf16
+    form once per shard and search) recall@K >= PROJ_RECALL_MIN; an int8
+    cosine index (int8_symmetric) of the same 1M rows over SHARDS shards,
+    one quantizer shared by all (form 3 once per shard and search),
+    recall@K >= RECALL_MIN against the exact scan over the same codes."""
+    from kektordb_tpu_torch.index import HNSWConfig, HNSWIndex
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.ops import scan
+    from kektordb_tpu_torch.parallel import ShardedHNSW, make_mesh
+    base, queries = main["base"], main["queries"]
+    out = {}
+    gi = ShardedHNSW(DIM, dist.L2, config=HNSWConfig(),
+                     mesh=make_mesh(SHARDS, DEV))
+    ext = [f"v{i}" for i in range(SHARD_GRAPH_N)]
+    _, build_s, bc = counted(
+        torch, f"sharded graph build ({SHARDS} x "
+               f"{SHARD_GRAPH_N // SHARDS})",
+        lambda: gi.add_batch(ext, base[:SHARD_GRAPH_N]), ("gather_dist",))
+    chunks = sum(-(-len(s) // gi.config.chunk) for s in gi.shards)
+    Qb = queries[:BEAM_B]
+    gt = dist.brute_force_topk(torch.from_numpy(Qb).to(DEV),
+                               torch.from_numpy(base[:SHARD_GRAPH_N]).to(DEV),
+                               K)[1].cpu().numpy()
+    gi.search(Qb, K, mode="beam")                              # warm
+    (_, g), beam_s, cb = counted(torch, "sharded beam",
+                                 lambda: gi.search(Qb, K, mode="beam"),
+                                 ("gather_dist",))
+    got = np.array([[int(e[1:]) for e in gi.ids.exts_array()[row]]
+                    for row in g])
+    rb = recall_at(got, gt)
+    del gi
+    one = HNSWIndex(DIM, dist.L2, config=HNSWConfig(), device=DEV)
+    t0 = time.perf_counter()
+    one.add_batch(ext, base[:SHARD_GRAPH_N])
+    one_s = time.perf_counter() - t0
+    _, r1 = one.search(Qb, K, mode="beam")
+    r1 = recall_at(np.array([[int(one.ids.row_to_ext[r][1:]) for r in row]
+                             for row in r1]), gt)
+    del one
+    print(f"phase shards: graph index {SHARDS} x {SHARD_GRAPH_N // SHARDS} "
+          f"(every default) built in {build_s:.3f} s, gather-distance "
+          f"{bc['gather_dist']} launches over {chunks} chunks "
+          f"({bc['gather_dist'] / chunks:.1f} a chunk); beam B={BEAM_B} "
+          f"ef_search 100: {BEAM_B / beam_s:.1f} QPS, recall@{K} {rb:.4f}, "
+          f"gather-distance {cb['gather_dist']} launches; one index over "
+          f"the same rows (built in {one_s:.3f} s): beam recall@{K} "
+          f"{r1:.4f}, the sharded read's floor less {SHARD_BEAM_SLACK} "
+          f"[{card}]", flush=True)
+    if rb < r1 - SHARD_BEAM_SLACK:
+        raise AssertionError(f"sharded beam recall {rb} < the one index's "
+                             f"{r1} - {SHARD_BEAM_SLACK}")
+    out.update(build_s=build_s, build_launches=bc["gather_dist"],
+               chunks=chunks, beam_recall=rb, beam_qps=BEAM_B / beam_s,
+               beam_launches=cb["gather_dist"], one_beam_recall=r1)
+
+    eng.configure_index("sift4", {"serve_proj_dim": PROJ_P,
+                                  "serve_proj_rerank": PROJ_RERANK})
+    eng.search("sift4", queries[:BATCH], k=K)          # fit and project
+    idx = eng.indexes["sift4"].index
+    basis = idx.shards[0]._proj_basis
+    if any(not torch.equal(s._proj_basis, basis) for s in idx.shards):
+        raise AssertionError("the shards' projection bases differ")
+    res, sec, cp = counted(
+        torch, "sharded projected Engine.search",
+        lambda: [eng.search("sift4", queries[i * BATCH:(i + 1) * BATCH],
+                            k=K) for i in range(2)],
+        ("scan_pass_a", "gather_dist"), (scan.FORM_BF16,))
+    if cp["scan_pass_a"] != SHARDS * 2:
+        raise AssertionError(f"projected: pass A launched "
+                             f"{cp['scan_pass_a']} times in 2 searches")
+    rp = recall_at(np.array([[int(x["id"][1:]) for x in h]
+                             for h in res[0][:RECALL_QUERIES]]), main["gt"])
+    eng.configure_index("sift4", {"serve_proj_dim": 0})
+    print(f"phase shards: projected scan (p={PROJ_P}, rerank {PROJ_RERANK}, "
+          f"one basis for the {SHARDS} shards) B={BATCH}: "
+          f"{2 * BATCH / sec:.1f} QPS, recall@{K} {rp:.4f} (min "
+          f"{PROJ_RECALL_MIN}); pass A form 2 "
+          f"{cp['scan_pass_a forms'][scan.FORM_BF16]} launches [{card}]",
+          flush=True)
+    if rp < PROJ_RECALL_MIN:
+        raise AssertionError(f"sharded projected recall {rp} < "
+                             f"{PROJ_RECALL_MIN}")
+    out.update(proj_recall=rp, proj_qps=2 * BATCH / sec,
+               proj_launches=cp["scan_pass_a"])
+
+    eng.create_index("cos4", metric=dist.COSINE, precision="int8",
+                     serve_mode="scan", shards=SHARDS)
+    eng.configure_index("cos4", {"int8_symmetric": True})
+    eng.add_batch("cos4", [f"v{i}" for i in range(N_BASE)], base)
+    c8 = eng.indexes["cos4"].index
+    scales = {float(s.quantizer.abs_max) for s in c8.shards}
+    if len(scales) != 1:
+        raise AssertionError(f"int8 shards hold {len(scales)} quantizers")
+    Q = queries[:INT8_B]
+    eng.search("cos4", Q, k=K)                                 # warm
+    res, sec, c3 = counted(torch, "sharded int8_symmetric Engine.search",
+                           lambda: [eng.search("cos4", Q, k=K)
+                                    for _ in range(2)],
+                           ("scan_pass_a",), (scan.FORM_INT8,))
+    if c3["scan_pass_a forms"][scan.FORM_INT8] != SHARDS * 2:
+        raise AssertionError("int8: form 3 did not run once per shard")
+    # the exact scan over every shard's codes, as one arena
+    codes = torch.cat([s.state.vectors[:s.ids.capacity_used]
+                       for s in c8.shards])
+    cn = torch.cat([s.state.norms[:s.ids.capacity_used] for s in c8.shards])
+    row_ext = np.concatenate([np.array(s.ids.row_to_ext, dtype=object)
+                              for s in c8.shards])
+    q8, _ = c8.shards[0]._encode_query(c8.shards[0]._queries(Q))
+    bA, bB = scan.serving_bias(
+        codes, cn, torch.ones(codes.shape[0], dtype=torch.bool, device=DEV),
+        dist.COSINE)
+    ex = scan._scan_blocked(q8, codes, bA, bB, K)[1].cpu().numpy()
+    want = np.array([[int(e[1:]) for e in row_ext[r]] for r in ex])
+    got = np.array([[int(x["id"][1:]) for x in h] for h in res[0]])
+    r8 = recall_at(got, want)
+    print(f"phase shards: int8 cosine index of {N_BASE} rows over {SHARDS} "
+          f"shards, one quantizer (abs_max {scales.pop():.6g}), "
+          f"int8_symmetric B={INT8_B}: {2 * INT8_B / sec:.1f} QPS, "
+          f"recall@{K} {r8:.4f} against the exact scan over the same codes "
+          f"(min {RECALL_MIN}); form 3 "
+          f"{c3['scan_pass_a forms'][scan.FORM_INT8]} launches [{card}]",
+          flush=True)
+    if r8 < RECALL_MIN:
+        raise AssertionError(f"sharded int8 recall {r8} < {RECALL_MIN}")
+    eng.drop_index("cos4")
+    out.update(int8_recall=r8, int8_qps=2 * INT8_B / sec,
+               int8_launches=c3["scan_pass_a forms"][scan.FORM_INT8])
+    return out
+
+
+def shard_engine_persist(torch, card: str) -> dict:
+    """Phase 20(c): the Engine with shards=SHARDS and a data dir under
+    build/: create (every default: graph on insert), add SHARD_ENGINE_N
+    SIFT-like rows with Zipf texts, a hybrid search (text_query, alpha 0.5
+    and 1: each query's own row first at alpha 1), 100 deletes, a
+    checkpoint and a reopen that comes back sharded, the same hybrid ids
+    (except adjacent ties), every vector bit-equal, the deleted ids gone."""
+    import shutil
+    import tempfile
+
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.parallel import ShardedHNSW
+    X = make_sift_like(SHARD_ENGINE_N, DIM, seed=SHARD_ENGINE_SEED)
+    rng = np.random.default_rng(SHARD_ENGINE_SEED)
+    texts = zipf_texts(rng, SHARD_ENGINE_N)
+    root = tempfile.mkdtemp(prefix="shards_", dir="build")
+    try:
+        e = Engine(EngineConfig(device=DEV, data_dir=root,
+                                start_background=False)).open()
+        e.create_index("docs4", shards=SHARDS)
+        t0 = time.perf_counter()
+        e.add_batch("docs4", [f"c{i}" for i in range(SHARD_ENGINE_N)], X,
+                    [{"body": t, "_indexed_fields": ["body"]}
+                     for t in texts])
+        add_s = time.perf_counter() - t0
+        Q = X[100:164]
+        self_hits = e.search("docs4", Q, k=K, text_query=TEXT_QUERY,
+                             alpha=1.0)
+        if any(h[0]["id"] != f"c{100 + b}" for b, h in enumerate(self_hits)):
+            raise AssertionError("sharded hybrid alpha=1: a query missed "
+                                 "its own row")
+        dead = [f"c{i}" for i in range(100)]
+        for d in dead:
+            e.delete("docs4", d)
+        want = e.search("docs4", Q, k=K, text_query=TEXT_QUERY, alpha=0.5)
+        e.close()                                  # writes a checkpoint
+        t0 = time.perf_counter()
+        e2 = Engine(EngineConfig(device=DEV, data_dir=root,
+                                 start_background=False)).open()
+        open_s = time.perf_counter() - t0
+        idx = e2.indexes["docs4"].index
+        if not isinstance(idx, ShardedHNSW) or idx.n_shards != SHARDS \
+                or len(idx) != SHARD_ENGINE_N - len(dead):
+            raise AssertionError("the reopened index is not the sharded one")
+        got = e2.search("docs4", Q, k=K, text_query=TEXT_QUERY, alpha=0.5)
+        excused = same_ids([[h["id"] for h in q] for q in want],
+                           [[h["score"] for h in q] for q in want],
+                           [[h["id"] for h in q] for q in got],
+                           "reopened sharded hybrid")
+        n_eq = 0
+        for s in idx.shards:
+            exts = [x for x in s.ids.ext_to_row]
+            rows = torch.tensor([s.ids.ext_to_row[x] for x in exts],
+                                device=DEV).long()
+            want_v = torch.from_numpy(X[[int(x[1:]) for x in exts]]).to(DEV)
+            if not torch.equal(s.state.vectors[rows], want_v):
+                raise AssertionError("a sharded vector did not read back "
+                                     "bit-equal")
+            n_eq += len(exts)
+        if any(idx.ids.get(d) is not None for d in dead):
+            raise AssertionError("a deleted id came back")
+        e2.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase shards: Engine shards={SHARDS}, {SHARD_ENGINE_N} rows "
+          f"with text (graph on insert) added in {add_s:.3f} s; hybrid "
+          f"alpha=1 returns each query's row; {len(dead)} deletes; "
+          f"checkpoint and reopen ({open_s:.3f} s) came back sharded, the "
+          f"hybrid ids as before ({excused} places excused as ties), "
+          f"{n_eq} vectors bit-equal [{card}]", flush=True)
+    return {"add_s": add_s, "open_s": open_s, "excused": excused}
+
+
+_REPLICA_CHILD = '''
+import json, sys, time
+import numpy as np
+import torch
+pid, nproc, coord, data, out, dev = (int(sys.argv[1]), int(sys.argv[2]),
+                                     sys.argv[3], sys.argv[4], sys.argv[5],
+                                     sys.argv[6])
+from kektordb_tpu_torch.distboot import init_distributed
+init_distributed(coord, num_processes=nproc, process_id=pid, device=dev,
+                 timeout_s=240)
+import torch.distributed as tdist
+from kektordb_tpu_torch.index import HNSWConfig
+from kektordb_tpu_torch.ops import distance as dist
+from kektordb_tpu_torch.ops import scan
+from kektordb_tpu_torch.parallel import ShardedHNSW
+from kektordb_tpu_torch.parallel import distributed as dlib
+z = np.load(data)
+X, Q, reps, k = z["X"], z["Q"], int(z["reps"]), int(z["k"])
+mesh2d = dlib.replica_mesh(device=dev)
+sh = ShardedHNSW(X.shape[1], "euclidean",
+                 config=HNSWConfig(serve_mode="scan"),
+                 mesh=dlib.local_shard_mesh(mesh2d))
+sh.add_batch([f"v{i}" for i in range(X.shape[0])], X)
+rep = dlib.ReplicatedServing(sh, mesh2d)
+rep.search(Q, k)
+scan.pass_a.launches = 0
+dist.gathered.launches = 0
+t0 = time.perf_counter()
+for _ in range(reps):
+    d, g = rep.search(Q, k)
+sec = time.perf_counter() - t0
+launches = (scan.pass_a.launches, dist.gathered.launches)
+vr = rep.verify_replicas()
+json.dump({"rank": pid, "backend": tdist.get_backend(),
+           "devices": [str(x) for x in sh.mesh], "qps": reps * len(Q) / sec,
+           "pass_a": launches[0], "gather": launches[1],
+           "equal": vr["equal"], "crc": vr["fingerprint_crc32"],
+           "ids": sh.ids.exts_array()[g].tolist(), "d": d.tolist()},
+          open(out, "w"))
+tdist.destroy_process_group()
+'''
+
+
+def replica_phase(torch, main: dict, card: str) -> dict:
+    """Phase 20(d): two processes on the card form a torch.distributed
+    group (distboot's rule: two ranks, one card -> gloo, the tops staged
+    through the host), each a full replica of REPLICA_SHARDS shards of
+    REPLICA_N of phase 4's rows; ReplicatedServing.search of BATCH
+    queries (each rank scans its half), REPLICA_SEARCHES times: QPS, each
+    rank's pass-A launches (REPLICA_SHARDS a search), the gathered ids
+    equal (except adjacent ties) to this process's single-process sharded
+    search of the same rows, and verify_replicas equal on both. Each child
+    has CHILD_TIMEOUT_S; a child's failure or timeout fails the phase."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    from kektordb_tpu_torch import device as devlib
+    from kektordb_tpu_torch.index import HNSWConfig
+    from kektordb_tpu_torch.ops import distance as dist
+    from kektordb_tpu_torch.parallel import ShardedHNSW
+    X, Q = main["base"][:REPLICA_N], main["queries"][:BATCH]
+    root = tempfile.mkdtemp(prefix="replicas_", dir="build")
+    procs = []
+    try:
+        data = os.path.join(root, "rows.npz")
+        np.savez(data, X=X, Q=Q, reps=REPLICA_SEARCHES, k=K)
+        child = os.path.join(root, "replica.py")
+        with open(child, "w") as f:
+            f.write(_REPLICA_CHILD)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            coord = f"localhost:{s.getsockname()[1]}"
+        env = cli_env()
+        env[devlib.DEVICE_REPEAT_ENV] = str(REPLICA_SHARDS)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, child, str(r), str(REPLICAS), coord, data,
+             os.path.join(root, f"out{r}.json"), DEV], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(REPLICAS)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=CHILD_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                raise AssertionError("a replica process timed out")
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"replica {r} failed "
+                                     f"({p.returncode}):\n{log[-3000:]}")
+        outs = [json.load(open(os.path.join(root, f"out{r}.json")))
+                for r in range(REPLICAS)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    sh = ShardedHNSW(DIM, dist.L2, config=HNSWConfig(serve_mode="scan"),
+                     mesh=devlib.visible_devices(DEV)[:1] * REPLICA_SHARDS)
+    sh.add_batch([f"v{i}" for i in range(REPLICA_N)], X)
+    d, g = sh.search(Q, K)
+    want = sh.ids.exts_array()[g].tolist()
+    excused = []
+    for o in outs:
+        if o["backend"] != "gloo" or not o["equal"]:
+            raise AssertionError(f"replica {o['rank']}: backend "
+                                 f"{o['backend']}, replicas equal "
+                                 f"{o['equal']}")
+        if o["pass_a"] != REPLICA_SHARDS * REPLICA_SEARCHES:
+            raise AssertionError(f"replica {o['rank']}: pass A launched "
+                                 f"{o['pass_a']} times")
+        excused.append(same_ids(want, d.tolist(), o["ids"],
+                                f"replica {o['rank']}"))
+    if outs[0]["crc"] != outs[1]["crc"]:
+        raise AssertionError("the replicas' fingerprints differ")
+    print(f"phase replicas: {REPLICAS} processes on one card over "
+          f"{outs[0]['backend']} (distboot's rule), each {REPLICA_SHARDS} "
+          f"shards ({outs[0]['devices']}) of {REPLICA_N} rows; "
+          f"ReplicatedServing.search B={BATCH} x {REPLICA_SEARCHES}: "
+          + ", ".join(f"rank {o['rank']} {o['qps']:.1f} QPS, pass A "
+                      f"{o['pass_a']}, gather-distance {o['gather']}"
+                      for o in outs)
+          + f"; ids as the single-process sharded search ({excused} places "
+          f"excused as ties); verify_replicas equal, crc {outs[0]['crc']}; "
+          f"{wall:.1f} s with the processes' start [{card}]", flush=True)
+    return {"qps": outs[0]["qps"], "launches": outs[0]["pass_a"],
+            "gather_launches": outs[0]["gather"], "wall_s": wall}
+
+
+def shard_phase(torch, main: dict, exact: dict, card: str) -> dict:
+    """Phase 20, with KEKTOR_TORCH_DEVICE_REPEAT=SHARDS: (a)-(c) in this
+    process on cuda:0 repeated, (d) in two more."""
+    import os
+
+    from kektordb_tpu_torch import device as devlib
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    os.environ[devlib.DEVICE_REPEAT_ENV] = str(SHARDS)
+    try:
+        eng = Engine(EngineConfig(device=DEV, start_background=False)).open()
+        a = shard_scan_read(torch, eng, main, exact, card)
+        b = shard_more_reads(torch, eng, main, card)
+        eng.close()
+        del eng
+        c = shard_engine_persist(torch, card)
+    finally:
+        os.environ.pop(devlib.DEVICE_REPEAT_ENV, None)
+    d = replica_phase(torch, main, card)
+    return {"scan": a, "more": b, "engine": c, "replicas": d}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3164,6 +3814,8 @@ def main() -> int:
     proj = proj_phase(torch, card)
     host = host_phase(torch, main, proj, card)
     server = server_phase(torch, main, card)
+    minilm = minilm_phase(torch, card)
+    shards = shard_phase(torch, main, exact, card)
 
     leaked = [m for m in sys.modules
               if m in ("jax", "jaxlib", "kektordb_tpu", "ml_dtypes")
@@ -3188,6 +3840,14 @@ def main() -> int:
           f"HTTP plain {server['reads']['qps']['plain']:.1f}, columnar "
           f"{server['reads']['qps']['columnar']:.1f}, b64 "
           f"{server['reads']['qps']['b64']:.1f} QPS [{card}]", flush=True)
+    mm = ", ".join(f"{k} {v['encode_per_s']:.1f}"
+                   for k, v in minilm.items())
+    print(f"phase times: MiniLM embeddings/s (encode): {mm}; sharded scan "
+          f"(S={SHARDS}) {shards['scan']['qps']:.1f} QPS at recall@{K} "
+          f"{shards['scan']['recall']:.4f} beside phase 4's "
+          f"{main['qps']:.1f} at {main['recall']:.4f}; replicated "
+          f"({REPLICAS} processes x {REPLICA_SHARDS} shards) "
+          f"{shards['replicas']['qps']:.1f} QPS [{card}]", flush=True)
     print(f"phase total: {time.perf_counter() - t_start:.1f} s [{card}]",
           flush=True)
     # no single PyTorch call computes any of these kernels' functions
@@ -3214,7 +3874,16 @@ def main() -> int:
             "phase 17, host sweep, bf16 (form 2)":
                 host["span"]["bf16"]["counts"]["scan_pass_a"],
             "phase 18, HTTP reads of phase 4's index":
-                server["reads"]["counts"]["scan_pass_a"]},
+                server["reads"]["counts"]["scan_pass_a"],
+            f"phase 20, sharded scan read, {N_BATCHES} searches of "
+            f"{SHARDS} shards": shards["scan"]["launches"],
+            f"phase 20, sharded projected read (bf16 form, D={PROJ_P}), 2 "
+            "searches": shards["more"]["proj_launches"],
+            "phase 20, sharded int8 read (form 3), 2 searches":
+                shards["more"]["int8_launches"],
+            f"phase 20, replicated read, rank 0, {REPLICA_SEARCHES} "
+            f"searches of {REPLICA_SHARDS} shards":
+                shards["replicas"]["launches"]},
         "max_abs_err": max(max_err, path_errs["scan_pass_a"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3274,7 +3943,14 @@ def main() -> int:
             "HTTP reads of phase 4's index (phase 18)":
                 server["reads"]["counts"]["gather_dist"],
             "beam after optimize_layout (phase 12)":
-                bf16["layout"]["beam_launches"]},
+                bf16["layout"]["beam_launches"],
+            f"sharded graph build, {shards['more']['chunks']} chunks "
+            "(phase 20)": shards["more"]["build_launches"],
+            "sharded beam (phase 20)": shards["more"]["beam_launches"],
+            "sharded scan re-rank (phase 20)":
+                shards["scan"]["gather_launches"],
+            "replicated read re-rank, rank 0 (phase 20)":
+                shards["replicas"]["gather_launches"]},
         "chunk_share_bf16_build": bf16["chunk_gather_share"]}]
     # the projected read's new shapes: pass A's bf16 form at depth PROJ_P
     # and the full-dimension re-rank, each timed on that read's operands
@@ -3335,6 +4011,19 @@ def main() -> int:
         "plain_ms": hg["plain_ms"], "bound_ms": hg["bound_ms"],
         "bound_by": hg["bound_by"], "library_ms": None,
         "issue_ms": hg["issue_ms"], "timed_at": hg["shape"]})
+    sf = shards["scan"]["held"]
+    kernels.append({
+        "name": f"scan_pass_a form {sf['form']} (sharded scan, one shard of "
+                f"{SHARDS})", "route": "cuda",
+        "source": "kektordb_tpu_torch/csrc/scan_pass_a_wgmma.cu",
+        "replaces": "kektordb_tpu/ops/scan.py:175",
+        "launches": shards["scan"]["launches"],
+        "launches_path": "phase 20, sharded scan read",
+        "max_abs_err": max(sf["max_abs_err"], shards["scan"]["gather_err"]),
+        "ms": sf["ms"], "plain_ms": sf["plain_ms"],
+        "bound_ms": sf["bound_ms"], "bound_by": sf["bound_by"],
+        "library_ms": None, "issue_ms": sf["issue_ms"],
+        "timed_at": sf["shape"]})
     for name, replaces in (("scan_vT", "scripts/matmul_ceiling.py:90"),
                            ("scan_reduce", "scripts/scan_pallas_proto.py:46")):
         pr = probes[name]

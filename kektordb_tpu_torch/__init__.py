@@ -11,8 +11,14 @@ H100 (sm_90a).
             decayed search, knowledge graph, belief states, KV
   text/     BM25 and the English / Italian analyzers (a copy of the JAX
             package's JAX-free text modules)
+  parallel/ sharded indexes over several devices (sharded.py) and
+            replicated serving over a torch.distributed group
+            (distributed.py); distboot.py forms the group
+  services/ the server's services, the MiniLM encoder (minilm.py)
+  client/   the Python SDK and the `tui` dashboard (copies)
   probes/   the product-ceiling and scan-prototype probes, run on the card
-  device.py device selection and float32 precision (TF32 off)
+  device.py device selection, float32 precision (TF32 off), and the
+            device-repeat setting (KEKTOR_TORCH_DEVICE_REPEAT)
   native.py builds csrc/ with nvcc at first use and loads it with ctypes
 
 The package imports torch and never jax, and nothing of the JAX package.

@@ -4,8 +4,11 @@ Reference: cmd/kektordb/main.go:83-136 — flags (port, data dir, token, log
 level) and mode fork: HTTP server (default) | MCP stdio | setup.
 Env vars mirror the reference: KEKTOR_PORT, KEKTOR_DATA_DIR, KEKTOR_TOKEN
 (DOCUMENTATION.md:225-242). `--device` (default "cuda") is the Engine's
-device; `--device cpu` runs on the CPU. Not ported yet: the `tui` mode
-(ROADMAP.md, queue 1, item 13) and the distributed flags (item 12).
+device; `--device cpu` runs on the CPU. `tui` is the terminal dashboard
+(client/tui.py) against a running server. The distributed flags join a
+torch.distributed process group (distboot.init_distributed) before the
+Engine starts; every process then serves its own replica, fed the same
+write stream.
 """
 
 from __future__ import annotations
@@ -43,12 +46,12 @@ def main(argv=None) -> int:
                    help="setup mode: target agent")
     p.add_argument("--device", default="cuda",
                    help="the Engine's device: cuda (default) or cpu")
-    # multi-host: join a jax.distributed cluster BEFORE any engine import
-    # (parallel/distributed.py — replica axis over processes/slices)
+    # multi-process: join a torch.distributed group before the Engine
+    # starts (parallel/distributed.py: the replica axis over processes)
     p.add_argument("--coordinator",
                    default=os.environ.get("KEKTOR_COORDINATOR") or None,
-                   help="jax.distributed coordinator address host:port "
-                        "(omit on TPU pods for cluster auto-detection)")
+                   help="process-group address host:port (rank 0 listens "
+                        "there)")
     p.add_argument("--process-id", type=int,
                    default=int(os.environ.get("KEKTOR_PROCESS_ID", -1)))
     p.add_argument("--num-processes", type=int,
@@ -60,15 +63,25 @@ def main(argv=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s %(message)s")
 
     if args.coordinator or args.num_processes > 0 or args.process_id >= 0:
-        raise SystemExit(
-            "the distributed flags (--coordinator, --process-id, "
-            "--num-processes) are not ported yet (ROADMAP.md, queue 1, "
-            "item 12)")
+        from .distboot import init_distributed
+        try:
+            init_distributed(
+                args.coordinator, num_processes=args.num_processes,
+                process_id=args.process_id, device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"distributed flags: {e}")
+        import torch.distributed as tdist
+        got = tdist.get_world_size()
+        if got != args.num_processes:
+            # an explicitly requested group size must form: serving a
+            # partial replica set would split the brain
+            raise SystemExit(
+                f"distributed init yielded {got} processes, "
+                f"--num-processes asked for {args.num_processes}")
 
     if args.mode == "tui":
-        raise SystemExit(
-            "the tui mode (client/tui.py) is not ported yet (ROADMAP.md, "
-            "queue 1, item 13)")
+        from .client.tui import main as tui_main
+        return tui_main([args.url])
 
     if args.mode == "setup":
         from .server.setup import write_agent_config

@@ -11,6 +11,8 @@ imported. Every module of the port imports this one.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -32,6 +34,34 @@ def resolve(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+# Test and smoke setting, the counterpart of XLA's
+# --xla_force_host_platform_device_count: with N > 0 the visible-device
+# list is one device repeated N times, so shards and replicas that want N
+# devices run on one card (or on the CPU). Unset or 0: the real devices.
+DEVICE_REPEAT_ENV = "KEKTOR_TORCH_DEVICE_REPEAT"
+
+
+def device_repeat() -> int:
+    return int(os.environ.get(DEVICE_REPEAT_ENV) or 0)
+
+
+def visible_devices(device="cuda") -> list[torch.device]:
+    """The devices a sharded index may span, in order: every card
+    (`cuda:0` ..) for a CUDA device, the CPU for "cpu"; with
+    KEKTOR_TORCH_DEVICE_REPEAT=N, the given device (cuda:0 for "cuda")
+    N times."""
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    n = device_repeat()
+    if n > 0:
+        return [dev] * n
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def from_numpy(a, device) -> torch.Tensor:

@@ -18,10 +18,11 @@ applied in memory; `open` loads the newest checkpoint
 `import_batch` and the background loop call it).
 
 Index kinds: "hnsw" (the default), "flat" and "host" (a host-RAM arena
-swept in streamed chunks, index/hostarena.py). Not ported yet, and refused
-with NotImplementedError (ROADMAP.md, queue 1, item 12): sharded indexes
-(`shards > 1`). A journal or checkpoint written with shards opens
-unsharded, as the JAX package opens it on a host with fewer devices.
+swept in streamed chunks, index/hostarena.py). `shards > 1` makes an hnsw
+index row-sharded over that many visible devices (parallel/sharded.py;
+`device.visible_devices`). A journal or checkpoint written with more shards
+than this host's visible devices opens unsharded, as the JAX package opens
+it on a smaller mesh.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from dataclasses import asdict, dataclass
 from typing import Any, Optional, Sequence
 
 import numpy as np
-import torch
 
 from .. import device as devlib
 from ..index.base import IDMap
@@ -216,16 +216,11 @@ class Engine:
             if precision not in dist.PRECISIONS:
                 raise ValueError(f"unknown precision {precision!r}")
             if shards > 1:
-                # a CPU mesh is one gloo process per core (item 12)
-                visible = torch.cuda.device_count() \
-                    if self.device.type == "cuda" else os.cpu_count() or 1
+                visible = len(devlib.visible_devices(self.device))
                 if shards > visible:
                     raise ValueError(
                         f"shards={shards} but only {visible} devices are "
                         "visible")
-                raise NotImplementedError(
-                    "shards > 1 (parallel/sharded) is not ported yet "
-                    "(ROADMAP.md, queue 1, item 12)")
             cfg = HNSWConfig(m=m, ef_construction=ef_construction,
                              ef_search=ef_search, seed=seed,
                              serve_mode=serve_mode,
@@ -234,7 +229,8 @@ class Engine:
             if kind == "hnsw":
                 check_supported(cfg)
             # the dimension is fixed by the first add
-            lazy = _LazyIndex(metric, precision, cfg, kind=kind)
+            lazy = _LazyIndex(metric, precision, cfg, kind=kind,
+                              shards=shards)
             lazy.proj_request = serve_proj_dim
             if _journal:
                 self._journal("VCREATE", name, metric, precision,
@@ -273,7 +269,7 @@ class Engine:
                 "needs_refine": getattr(idx, "needs_refine", False),
                 "serve_mode": getattr(getattr(idx, "config", None),
                                       "serve_mode", ""),
-                "shards": 0,
+                "shards": getattr(idx, "n_shards", 0),
                 "config": asdict(idx.config) if hasattr(idx, "config")
                 else {k: getattr(idx, k)
                       for k in ("chunk_rows", "proj_dim", "proj_rerank")
@@ -285,6 +281,10 @@ class Engine:
                 "mask_cache": {"entries": len(h.mask_cache),
                                "hits": h.mask_hits,
                                "misses": h.mask_misses},
+                # sharded: per-shard state checksums, so replicas can be
+                # compared through /system/stats
+                **({"state_fingerprint": idx.state_fingerprint(settle=False)}
+                   if hasattr(idx, "state_fingerprint") else {}),
             }
 
     def configure_index(self, name: str, config: dict[str, Any],
@@ -343,7 +343,7 @@ class Engine:
                 icfg.max_unlinked = max(0, int(config["max_unlinked"]))
             if "serve_proj_dim" in config:
                 icfg.serve_proj_dim = max(0, int(config["serve_proj_dim"]))
-                if isinstance(h.index, HNSWIndex):
+                if hasattr(h.index, "invalidate_projection"):
                     h.index.invalidate_projection()
             if "serve_proj_rerank" in config:
                 icfg.serve_proj_rerank = max(
@@ -510,6 +510,11 @@ class Engine:
                 proj_dim="auto" if req is None else req,
                 proj_rerank=lazy.config.serve_proj_rerank,
                 device=self.device)
+        elif lazy.shards > 1:
+            from ..parallel.sharded import ShardedHNSW, make_mesh
+            h.index = ShardedHNSW(dim, lazy.metric, lazy.precision,
+                                  lazy.config,
+                                  mesh=make_mesh(lazy.shards, self.device))
         else:
             h.index = HNSWIndex(dim, lazy.metric, lazy.precision, lazy.config,
                                 device=self.device)
@@ -1298,7 +1303,7 @@ class Engine:
                     "lazy": True, "metric": idx.metric,
                     "precision": idx.precision,
                     "config": asdict(idx.config),
-                    "kind": idx.kind, "shards": 0, **common}
+                    "kind": idx.kind, "shards": idx.shards, **common}
                 continue
             st = index_io.dump_index(idx, name, arrays)
             st.update({"lazy": False, **common,
@@ -1318,22 +1323,25 @@ class Engine:
         for name, st in (state.get("indexes") or {}).items():
             if st.get("lazy"):
                 kind = st.get("kind", "hnsw")
-                if int(st.get("shards", 0)) > 1:
+                shards = int(st.get("shards", 0))
+                if shards > len(devlib.visible_devices(self.device)):
                     log.warning("checkpoint: index %s was created with "
-                                "shards=%s; it opens unsharded", name,
-                                st["shards"])
+                                "shards=%s but fewer devices are visible; "
+                                "it opens unsharded", name, shards)
+                    shards = 0
                 cfg = index_io.cfg_from(st) if "config" in st \
                     else HNSWConfig()
                 h = IndexHandle(name, _LazyIndex(st["metric"],
                                                  st["precision"], cfg,
-                                                 kind=kind),
+                                                 kind=kind, shards=shards),
                                 language=st.get("language", "english"))
             else:
                 h = IndexHandle(name, index_io.load_index(
                     st, arrays, name, device=self.device),
                     language=st.get("language", "english"))
                 metas = st.get("metadata") or {}
-                if metas and st.get("kind") == "sharded":
+                if metas and st.get("kind") == "sharded" \
+                        and isinstance(h.index, HNSWIndex):
                     # keyed by the sharded index's global rows; the merged
                     # index numbered its rows anew
                     ext = {g: e for e, g in st["ext_to_gid"].items()}
@@ -1408,14 +1416,18 @@ class Engine:
             log.warning("AOF replay: ignoring unknown index config keys "
                         "%s for %s", sorted(unknown), name)
             c = {k: v for k, v in c.items() if k in known}
-        if int(c.get("shards", 0)) > 1:
-            # journaled with shards: recreated unsharded so the database
-            # opens (the journal carries the raw vectors, so no data is
-            # lost), as the JAX package does on a smaller mesh
-            log.warning("AOF replay: index %s journaled with shards=%s; "
-                        "recreating it unsharded", name, c["shards"])
-            c = dict(c, shards=0)
-        self.create_index(name, _journal=False, **c)
+        try:
+            self.create_index(name, _journal=False, **c)
+        except ValueError:
+            if int(c.get("shards", 0)) <= 1:
+                raise
+            # journaled on more devices than this host has: recreated
+            # unsharded so the database opens (the journal carries the raw
+            # vectors, so no data is lost), as the JAX package does
+            log.warning("AOF replay: index %s journaled with shards=%s but "
+                        "fewer devices are visible; recreating it "
+                        "unsharded", name, c["shards"])
+            self.create_index(name, _journal=False, **dict(c, shards=0))
 
     def _replay_entries(self, name: str, ops: dict[str, Any]) -> None:
         entries = ops.get("entries") or {}
@@ -1511,7 +1523,7 @@ class _LazyIndex:
     """Placeholder until the first vector fixes the dimension."""
 
     def __init__(self, metric: str, precision: str, cfg: HNSWConfig,
-                 kind: str = "hnsw"):
+                 kind: str = "hnsw", shards: int = 0):
         if precision == dist.BF16 and metric != dist.L2:
             raise ValueError("bfloat16 precision supports only euclidean")
         if precision == dist.INT8 and metric != dist.COSINE:
@@ -1520,6 +1532,7 @@ class _LazyIndex:
         self.precision = precision
         self.config = cfg
         self.kind = kind
+        self.shards = shards
         self.dim = 0
         self.deleted_count = 0
         self.ids = IDMap()

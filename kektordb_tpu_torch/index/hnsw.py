@@ -772,14 +772,17 @@ class HNSWIndex:
         rows = torch.where(torch.isinf(d), -1, rows)
         return torch.clamp_min(d, 0.0), rows.int()
 
-    def compress_serving(self, dtype: str = "bfloat16") -> None:
+    def compress_serving(self, dtype: str = "bfloat16",
+                         _pretrained: bool = False) -> None:
         """Narrow the stored vectors of a float32 index for serving after a
         bulk build; the graph is kept, later inserts encode into the
         narrowed arena. "bfloat16" keeps |x|^2 of the narrowed values for
         L2. "int8": cosine takes per-row scales (quantize_rowwise); L2
         trains the quantizer on the used rows and scores float queries
         against the codes (asymmetric), or in the quantized domain with
-        int8_symmetric and on the beam, rescaled in search()."""
+        int8_symmetric and on the beam, rescaled in search(). With
+        `_pretrained` the L2 quantizer is kept as it is (a sharded index
+        shares one across its shards)."""
         self._stage_pending()
         if self.precision != dist.F32:
             raise ValueError("compress_serving applies to float32 indexes")
@@ -788,8 +791,9 @@ class HNSWIndex:
             if self.metric == dist.COSINE:
                 codes, norms = quant.quantize_rowwise(vecs)
             else:
-                used = max(self.ids.capacity_used, 1)
-                self.quantizer = quant.train(vecs[:used])
+                if not _pretrained:
+                    used = max(self.ids.capacity_used, 1)
+                    self.quantizer = quant.train(vecs[:used])
                 codes, norms = quant.quantize(self.quantizer, vecs)
             self.state = self.state._replace(vectors=codes, norms=norms)
             self._serve_quantized = True

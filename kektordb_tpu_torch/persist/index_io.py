@@ -3,10 +3,12 @@ kektordb_tpu/persist/index_io.py: an index's tensors go into the
 checkpoint's arrays under "<name>/<leaf>" keys, its host state into a
 msgpack-able dict, so either package opens the other's indexes.
 
-Kinds: "hnsw" (the GraphState leaves) and "flat" (the brute-force
-arena). A "sharded" checkpoint (per-shard hnsw states and a global id
-map) opens as one unsharded index, as the JAX package opens it on a host
-with fewer devices than shards: every live vector is added again. Kind
+Kinds: "hnsw" (the GraphState leaves), "flat" (the brute-force arena)
+and "sharded" (each shard an hnsw state under "<name>/s<j>", and the
+global id map). A sharded checkpoint opens sharded where enough devices
+are visible (parallel.sharded.make_mesh), else as one unsharded index, as
+the JAX package opens it on a smaller mesh: every live vector is added
+again. Kind
 "host" (the host-RAM arena) keeps the JAX package's keys: "vectors",
 "norms" and "valid" arrays (bf16 as "<k>::bf16", checkpoint.py) and the
 projection's knobs in the state; the mirror itself is derived and refit.
@@ -39,6 +41,21 @@ def _quantizer_state(idx) -> dict[str, Any]:
 
 def dump_index(idx, name: str, arrays: dict[str, Any]) -> dict[str, Any]:
     """Put the index's tensors into `arrays` and return its host state."""
+    from ..parallel.sharded import ShardedHNSW
+    if isinstance(idx, ShardedHNSW):
+        return {
+            "kind": "sharded",
+            "metric": idx.metric, "precision": idx.precision,
+            "dim": idx.dim, "config": asdict(idx.config),
+            "n_shards": idx.n_shards,
+            "shards": [dump_index(sh, f"{name}/s{j}", arrays)
+                       for j, sh in enumerate(idx.shards)],
+            "ext_to_gid": dict(idx.ids.ext_to_row),
+            "gid_rows": len(idx.ids.row_to_ext),
+            "gid_free": list(idx.ids.free),
+            "loc_shard": [int(x) for x in idx._loc_shard],
+            "loc_row": [int(x) for x in idx._loc_row],
+        }
     if isinstance(idx, HostArenaIndex):
         arrays[f"{name}/vectors"] = idx._vectors
         arrays[f"{name}/norms"] = idx._norms
@@ -117,10 +134,26 @@ def load_index(st: dict[str, Any], arrays: dict[str, torch.Tensor],
     tensors on `device`."""
     kind = st.get("kind", "hnsw")
     if kind == "sharded":
-        log.warning("checkpoint index %s was saved with shards=%s; loading "
-                    "it as one unsharded index (the graph is rebuilt once)",
-                    name, st["n_shards"])
-        return _merge_sharded_to_single(st, arrays, name, device)
+        from ..parallel.sharded import ShardedHNSW, make_mesh
+        try:
+            mesh = make_mesh(st["n_shards"], device)
+        except ValueError:
+            log.warning("checkpoint index %s was saved with shards=%s but "
+                        "fewer devices are visible; loading it as one "
+                        "unsharded index (the graph is rebuilt once)",
+                        name, st["n_shards"])
+            return _merge_sharded_to_single(st, arrays, name, device)
+        idx = ShardedHNSW(st["dim"], st["metric"], st["precision"],
+                          cfg_from(st), mesh=mesh)
+        idx.shards = [load_index(sst, arrays, f"{name}/s{j}", d)
+                      for j, (sst, d) in enumerate(zip(st["shards"], mesh))]
+        row_to_ext = [None] * st["gid_rows"]
+        for e, g in st["ext_to_gid"].items():
+            row_to_ext[g] = e
+        idx._restore_ids({"row_to_ext": row_to_ext, "free": st["gid_free"],
+                          "loc_shard": st["loc_shard"],
+                          "loc_row": st["loc_row"]})
+        return idx
     if kind == "host":
         return HostArenaIndex.from_reference_state(
             st, {leaf: arrays[f"{name}/{leaf}"]

@@ -52,6 +52,8 @@ def build_services(engine, cfg: dict[str, Any]) -> dict[str, Any]:
     from ..services.embeddings import select_embedder
     emb_cfg = dict(cfg.get("embedder") or {})
     provider = emb_cfg.pop("provider", "auto")
+    if provider in ("local", "auto"):
+        emb_cfg.setdefault("device", str(engine.device))
     embedder = select_embedder(provider, **emb_cfg)
 
     llm = None

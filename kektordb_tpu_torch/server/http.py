@@ -1215,9 +1215,10 @@ def engine_compress(engine: Engine, name: str, precision: str) -> dict:
     # back with the same kind/shards/serve_mode, not a default HNSW
     from ..index.bruteforce import BruteForceIndex
     from ..index.hostarena import HostArenaIndex
+    from ..parallel.sharded import ShardedHNSW
     kind = "flat" if isinstance(idx, BruteForceIndex) \
         else "host" if isinstance(idx, HostArenaIndex) else "hnsw"
-    shards = 0      # sharded indexes are not ported (ROADMAP.md item 12)
+    shards = idx.n_shards if isinstance(idx, ShardedHNSW) else 0
     serve_mode = getattr(getattr(idx, "config", None), "serve_mode", "auto")
     # proj knobs live on config for hnsw/sharded, as attributes for host;
     # an auto host mirror must survive migration as auto (None), not be

@@ -5,9 +5,9 @@ with Ollama / OpenAI-compatible / Gemini / local-ONNX / Noop providers and a
 unified `SelectEmbedder` factory with `auto` probing (select.go:92-206).
 
 TPU-first replacements:
-  local    → a MiniLM-class encoder on the same card; not ported yet
-             (ROADMAP.md, queue 1, item 13): it raises, and `auto` falls
-             back to `hashing`.
+  local    → a MiniLM-class BERT encoder on the same card
+             (services/minilm.py). Needs weights on disk: without them
+             `auto` falls back to `hashing`.
   hashing  → deterministic feature-hash embedding (384-d, L2-normalized).
              Replaces NoopEmbedder (select.go:139) but actually carries
              signal: bag-of-words with signed hashing, so memory recall
@@ -79,18 +79,45 @@ class HashingEmbedder(_Base):
 
 
 class MiniLMEmbedder(_Base):
-    """BERT-family sentence encoder (all-MiniLM-*, bge, gte/e5): not
-    ported yet (ROADMAP.md, queue 1, item 13)."""
+    """BERT-family sentence encoder on `device` (services/minilm.py):
+    all-MiniLM-*, bge-small/base (CLS pooling, auto-detected), gte/e5
+    (mean pooling): any BERT-architecture sentence-transformers
+    checkpoint.
+
+    Weight resolution order: explicit weights_dir, then the kektordb model
+    cache (services/download.py; safetensors), then the Hugging Face local
+    cache, then a network fetch only when KEKTOR_ALLOW_DOWNLOAD=1."""
 
     name = "local"
 
     def __init__(self,
                  model_name: str = "sentence-transformers/all-MiniLM-L6-v2",
                  weights_dir: Optional[str] = None,
-                 pooling: Optional[str] = None):
-        raise NotImplementedError(
-            "the local MiniLM embedder (services/minilm) is not ported yet "
-            "(ROADMAP.md, queue 1, item 13)")
+                 pooling: Optional[str] = None, device="cuda"):
+        from . import download
+        from .minilm import MiniLMEncoder
+        if weights_dir is None:
+            weights_dir = download.local_model_dir(model_name)
+        if weights_dir is None \
+                and os.environ.get("KEKTOR_ALLOW_DOWNLOAD") == "1":
+            weights_dir = download.fetch_model(model_name)
+        self._enc = MiniLMEncoder(model_name, weights_dir=weights_dir,
+                                  pooling=pooling, device=device)
+        self.dim = self._enc.dim
+
+    @classmethod
+    def from_encoder(cls, enc) -> "MiniLMEmbedder":
+        """An embedder over an encoder built another way (from_params)."""
+        self = cls.__new__(cls)
+        self._enc = enc
+        self.dim = enc.dim
+        return self
+
+    def embed_batch(self, texts: Sequence[str]) -> np.ndarray:
+        return self._enc.encode(list(texts))
+
+    def reload(self) -> None:
+        self._enc.reload()
 
 
 class HTTPEmbedder(_Base):
@@ -215,7 +242,7 @@ def select_embedder(provider: str = "auto", **kw) -> _Base:
                                                "text-embedding-3-small"),
                                 os.environ.get("KEKTOR_EMBEDDER_KEY"))
         try:
-            return MiniLMEmbedder()
+            return MiniLMEmbedder(device=kw.get("device", "cuda"))
         except Exception as e:  # no cached weights / no transformers
             log.info("local embedder unavailable (%s); using hashing", e)
             return HashingEmbedder()

@@ -6,8 +6,10 @@ and take the card's memory, and the port keeps its own copies of what it
 needs. This test process imports JAX already (tests/conftest.py), so the
 boundary is checked in a fresh interpreter that imports the server, the
 services, the CLI and the host arena, and runs a filtered, a hybrid
-(text_query), a decayed and a host-index search; neither JAX, ml_dtypes
-nor the JAX package may be loaded after it."""
+(text_query), a decayed and a host-index search; a second one imports the
+sharded and replicated serving modules, the client package and the MiniLM
+encoder, and runs a sharded Engine search and an encoder forward; neither
+JAX, ml_dtypes nor the JAX package may be loaded after either."""
 
 import os
 import subprocess
@@ -21,6 +23,8 @@ from kektordb_tpu_torch import device as devlib
 from kektordb_tpu_torch.engine import Engine, EngineConfig
 from kektordb_tpu_torch.index import BruteForceIndex, HNSWConfig, HNSWIndex
 from kektordb_tpu_torch.index.hostarena import HostArenaIndex
+from kektordb_tpu_torch.parallel import ShardedHNSW
+from kektordb_tpu_torch.services.minilm import MiniLMEncoder
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -57,12 +61,45 @@ hits = e.search("h", X[5:7], k=2)
 assert hits[0][0]["id"] == "h5" and hits[1][0]["id"] == "h6", hits
 assert isinstance(e.indexes["h"].index, HostArenaIndex)
 e.close()
+"""
+
+_LEAKS = """
+import sys
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "kektordb_tpu", "ml_dtypes")
              or m.startswith(("jax.", "jaxlib.", "kektordb_tpu.",
                               "ml_dtypes.")))
 print("LEAKED", bad)
 sys.exit(1 if bad else 0)
+"""
+
+_CHILD_NEW = """
+import os
+import numpy as np
+os.environ["KEKTOR_TORCH_DEVICE_REPEAT"] = "2"
+import kektordb_tpu_torch.client
+import kektordb_tpu_torch.client.tui
+import kektordb_tpu_torch.client.langchain
+import kektordb_tpu_torch.distboot
+import kektordb_tpu_torch.parallel
+import kektordb_tpu_torch.services.download
+from kektordb_tpu_torch.engine import Engine, EngineConfig
+from kektordb_tpu_torch.parallel import ShardedHNSW
+from kektordb_tpu_torch.services.minilm import MiniLMEncoder
+e = Engine(EngineConfig(device="cpu", start_background=False)).open()
+e.create_index("s", shards=2, serve_mode="scan")
+X = np.random.default_rng(0).normal(size=(100, 8)).astype(np.float32)
+e.add_batch("s", [f"v{j}" for j in range(100)], X)
+assert isinstance(e.indexes["s"].index, ShardedHNSW)
+assert e.search("s", X[3], k=1)[0][0]["id"] == "v3"
+e.close()
+p = MiniLMEncoder.random_params(vocab_size=16, dim=32, n_layers=1,
+                                n_heads=4, intermediate=64, max_pos=16)
+enc = MiniLMEncoder.from_params(
+    p, lambda t: (np.ones((len(t), 4), np.int32),
+                  np.ones((len(t), 4), np.float32)),
+    n_layers=1, n_heads=4, dim=32, device="cpu")
+assert enc.encode(["a", "b"]).shape == (2, 32)
 """
 
 
@@ -74,8 +111,17 @@ def _env():
 
 
 def test_engine_search_imports_no_jax():
-    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=_env(),
-                       capture_output=True, text=True, timeout=300)
+    r = subprocess.run([sys.executable, "-c", _CHILD + _LEAKS], cwd=ROOT,
+                       env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
+def test_parallel_client_minilm_import_no_jax():
+    r = subprocess.run([sys.executable, "-c", _CHILD_NEW + _LEAKS],
+                       cwd=ROOT, env=_env(), capture_output=True, text=True,
+                       timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
 
@@ -107,6 +153,9 @@ def test_chip_smoke_alone_fails(tmp_path):
     lambda: BruteForceIndex(8),
     lambda: Engine(EngineConfig()),
     lambda: HostArenaIndex(8),
+    lambda: ShardedHNSW(8),
+    lambda: MiniLMEncoder.from_params({}, None, n_layers=0, n_heads=1,
+                                      dim=8),
 ])
 def test_cuda_default_raises_without_cuda(make, monkeypatch):
     """The default device is "cuda"; without a card it raises instead of

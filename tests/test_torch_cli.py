@@ -2,9 +2,11 @@
 CPU (`--device cpu`): `serve` with a data dir answers /healthz, creates,
 adds and searches over HTTP, and after a SIGTERM and a restart reads back
 every acknowledged vector; `mcp` speaks JSON-RPC over stdio (61 tools, a
-vector tool call); `tui` and the distributed flags are refused, each
-naming its ROADMAP item. The child runs without a card in sight and
-without the JAX package on any import path it takes."""
+vector tool call); `tui` and the distributed flags no longer name a
+ROADMAP item: `tui` without a terminal stops in curses, and a distributed
+flag without the other two is refused, naming what a process group
+needs. The child runs without a card in sight and without the JAX
+package on any import path it takes."""
 
 import json
 import os
@@ -139,11 +141,18 @@ def test_mcp_over_stdio(tmp_path):
     (["--process-id", "0"], "item 12"),
 ])
 def test_unported_modes_refused(tmp_path, args, item):
+    """Items 12 and 13 are ported: no mode is refused for them any more.
+    What still stops here is the missing terminal (`tui` in a pipe) and an
+    incomplete process group (one distributed flag alone)."""
     r = subprocess.run(_cli(*args, "--device", "cpu"), cwd=ROOT,
                        env=_env(tmp_path), capture_output=True, text=True,
                        timeout=120)
     assert r.returncode != 0
-    assert item in r.stderr and "not ported" in r.stderr, r.stderr
+    assert item not in r.stderr and "not ported" not in r.stderr, r.stderr
+    if args == ["tui"]:
+        assert "curses" in r.stderr, r.stderr
+    else:
+        assert "a process group needs" in r.stderr, r.stderr
 
 
 def test_default_device_needs_a_card(tmp_path):

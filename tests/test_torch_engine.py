@@ -2,8 +2,9 @@
 sequence of engine calls on the same seeded data gives the same hit ids,
 with metadata filters, graph_root masks and deletes. Scores and distances
 are held to rtol 1e-5 with an absolute floor of 1e-4 (float32 sums in
-another order). The options the port defers raise NotImplementedError;
-text and decay search are held to the reference in test_torch_fuse.py."""
+another order). The options once deferred (each raised
+NotImplementedError naming its ROADMAP item) run now; text and decay
+search are held to the reference in test_torch_fuse.py."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 from kektordb_tpu.engine import Engine as JEngine
 from kektordb_tpu.engine import EngineConfig as JEngineConfig
+from kektordb_tpu_torch import device as devlib
 from kektordb_tpu_torch.engine import Engine, EngineConfig
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -133,32 +135,29 @@ def test_engine_host_surface():
     eng.close()
 
 
-# (call, ported): serve_mode "auto" and "beam" came with the graph slice,
-# text_query with the fusion slice, data_dir and serve_proj_dim with the
-# persistence slice, kind="host" with the host-arena slice, and now run;
-# the rest still raise, naming their ROADMAP item
-@pytest.mark.parametrize("call,ported", [
-    (lambda e: Engine(EngineConfig(device="cpu", data_dir="/nonexistent")),
-     True),
-    (lambda e: e.create_index("s", shards=2, serve_mode="scan"), False),
-    (lambda e: e.create_index("h", kind="host"), True),
-    (lambda e: e.create_index("a"), True),               # serve_mode="auto"
-    (lambda e: e.create_index("b", serve_mode="beam"), True),
-    (lambda e: e.create_index("p", serve_mode="scan", serve_proj_dim=8),
-     True),
-    (lambda e: e.search("t", np.ones(4), text_query="hello"), True),
+# options that once raised NotImplementedError, each naming its ROADMAP
+# item, and now run: serve_mode "auto" and "beam" came with the graph
+# slice, text_query with the fusion slice, data_dir and serve_proj_dim with
+# the persistence slice, kind="host" with the host-arena slice, shards
+# with the sharded slice (two shards on the CPU, by the device-repeat
+# setting)
+@pytest.mark.parametrize("call", [
+    lambda e: Engine(EngineConfig(device="cpu", data_dir="/nonexistent")),
+    lambda e: e.create_index("s", shards=2, serve_mode="scan"),
+    lambda e: e.create_index("h", kind="host"),
+    lambda e: e.create_index("a"),                       # serve_mode="auto"
+    lambda e: e.create_index("b", serve_mode="beam"),
+    lambda e: e.create_index("p", serve_mode="scan", serve_proj_dim=8),
+    lambda e: e.search("t", np.ones(4), text_query="hello"),
 ], ids=[f"call{i}" for i in range(7)])
-def test_deferred_options_raise(call, ported):
+def test_deferred_options_raise(call, monkeypatch):
+    monkeypatch.setenv(devlib.DEVICE_REPEAT_ENV, "2")
     eng = Engine(EngineConfig(device="cpu", start_background=False)).open()
     eng.create_index("t", serve_mode="scan")
     eng.add("t", "a", np.ones(4))
-    if not ported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(eng)
-        eng.close()
-        return
     call(eng)
-    name = eng.list_indexes()[0]   # "a", "b", "h" or "p" (before "t"), or "t"
+    # "a", "b", "h", "p" or "s" (before "t"), or "t"
+    name = eng.list_indexes()[0]
     eng.add(name, "x", np.full(4, 3.0))
     assert eng.search(name, np.full(4, 3.0), k=1)[0][0]["id"] == "x"
     eng.close()

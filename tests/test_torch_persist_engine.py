@@ -249,8 +249,9 @@ def test_int8_compressed_serving_survives_checkpoint(tmp_path, clock,
 @pytest.mark.parametrize("mode", ["ckpt", "journal"])
 def test_reference_sharded_data_dir_opens_unsharded(tmp_path, clock, mode):
     """Written by the reference on the 8-device CPU mesh with shards=4;
-    the port (one card, no sharded index) opens it as one index, as the
-    reference does on a host with fewer devices than shards."""
+    the port, seeing one device, opens it as one index, as the reference
+    does on a host with fewer devices than shards (and refuses a new
+    shards=4 index there)."""
     rng = np.random.default_rng(4)
     X = rng.normal(size=(400, 16)).astype(np.float32)
     w = ref(tmp_path)
@@ -275,7 +276,7 @@ def test_reference_sharded_data_dir_opens_unsharded(tmp_path, clock, mode):
         np.testing.assert_allclose(
             [[h["distance"] for h in q] for q in a],
             [[h["distance"] for h in q] for q in b], rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="devices are visible"):
         r.create_index("again", shards=4)
     clock[0] += 1.0
     r.close()

@@ -7,8 +7,9 @@ copies: its source is read, every `kektordb_tpu` module becomes its
 resulting test classes and functions are collected here under their own
 names. Then the port's own rules: MCP lists the reference's 61 tools, and
 each one dispatches cleanly on an engine holding a vector, a link and a
-KV key; the local MiniLM embedder is not ported yet and says so, while
-"auto" keeps the reference's fallback to hashing.
+KV key; the local MiniLM embedder is ported (it needs weights on disk,
+and raises its loader's error without them), while "auto" keeps the
+reference's fallback to hashing.
 """
 
 import json
@@ -128,11 +129,40 @@ def test_mcp_vector_tool_call():
     e.close()
 
 
-def test_local_embedder_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        embeddings.select_embedder("local")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        embeddings.MiniLMEmbedder()
+def test_local_embedder_not_ported(tmp_path, monkeypatch):
+    """No longer refused: without weights on disk the local embedder
+    raises the loader's own error, and with a weights directory it runs
+    (on the CPU when asked)."""
+    monkeypatch.setenv("KEKTOR_MODEL_DIR", str(tmp_path / "models"))
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.delenv("KEKTOR_ALLOW_DOWNLOAD", raising=False)
+    with pytest.raises(Exception) as e:
+        embeddings.select_embedder("local", device="cpu")
+    assert not isinstance(e.value, NotImplementedError)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        embeddings.MiniLMEmbedder()     # default "cuda", no card here
+    from safetensors import numpy as st_np
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    from kektordb_tpu_torch.services.minilm import MiniLMEncoder
+    d = tmp_path / "w"
+    d.mkdir()
+    st_np.save_file(MiniLMEncoder.random_params(
+        vocab_size=16, dim=32, n_layers=1, n_heads=4, intermediate=64,
+        max_pos=32), str(d / "model.safetensors"))
+    (d / "config.json").write_text(json.dumps(
+        {"num_hidden_layers": 1, "num_attention_heads": 4,
+         "hidden_size": 32}))
+    tk = Tokenizer(models.WordLevel({"[UNK]": 0, "hi": 1},
+                                    unk_token="[UNK]"))
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.save(str(d / "tokenizer.json"))
+    emb = embeddings.select_embedder("local", weights_dir=str(d),
+                                     device="cpu")
+    v = emb.embed("hi there")
+    assert emb.name == "local" and v.shape == (32,)
+    np.testing.assert_allclose(np.linalg.norm(v), 1.0, rtol=1e-5)
 
 
 def test_auto_embedder_falls_back_to_hashing(monkeypatch):
