@@ -6,7 +6,8 @@
 Phases, one line each; any failure exits non-zero:
   1 device  the card's name and power limit (nvidia-smi)
   2 build   nvcc builds kektordb_tpu_torch/csrc into build/, one compiler
-            per source at once, then one link (timed)
+            per source at once, then one link (timed); g++ builds the host
+            runtime (csrc/host/kektor_native.cpp, host_native.py; timed)
   3 kernel  pass A (csrc/scan_pass_a_wgmma.cu, every form on the tensor
             cores; each line names its product) against its plain PyTorch
             version on the card, B=256, N=2^17, D=128, in every precision
@@ -132,15 +133,24 @@ Phases, one line each; any failure exits non-zero:
             50,000 journaled adds (SIFT-like, seed 1240, graph linked),
             1,000 deletes, 100 metadata patches, KV sets and links, one
             VCONFIG; the journal flushed by the writer's own thread, the
-            engine dropped without close() (a crash); reopened (checkpoint
-            + replay: replay seconds, rows/s, the Python frame scanner's
-            share), closed (a checkpoint, timed) and reopened (checkpoint
+            engine dropped without close() (a crash); the journal scanned
+            by the host runtime's C++ frame scanner and by the Python one
+            (equal frames, no corrupt region; both timed, with their
+            shares of the replay), and a corrupted copy of it (a zeroed
+            stretch mid-journal, a torn tail: equal frames and regions);
+            reopened (checkpoint + replay on the C++ scanner, its calls
+            and gather-distance's launches counted: replay seconds,
+            rows/s), closed (a checkpoint, timed) and reopened (checkpoint
             only); after each reopen the B=1024 scan read as the writer
             gave it (ids except adjacent ties, distances within RTOL), every
             acknowledged vector bit-equal, deletes gone, KV / links /
             metadata / VCONFIG back, beam recall@10 >= 0.95; then
             compress_serving("int8"): recall@10 against the f32 oracle >=
-            0.90, a checkpoint and a reopen with the same reads
+            0.90, a checkpoint and a reopen with the same reads; then the
+            host runtime's exact top-k (host_native.bruteforce_topk) on
+            256 of phase 4's queries over 100,000 of its rows against the
+            card's distance.brute_force_topk: ids equal but for ties,
+            distances within RTOL of the terms' magnitudes (both timed)
  16 proj    bench.py's anisotropic collection (400,000 x 384 cosine rows,
             power-law spectrum, seed 424242), serve_mode "scan",
             serve_proj_dim 32, serve_proj_rerank 128: Engine.search at
@@ -216,9 +226,9 @@ kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
 host's issue time per call is printed beside each. Each path of phases
 7 to 20 (the build, the scan search, the beam, vacuum, import, the two
 probes, the hybrid and decayed searches, the bf16 build and beam, the
-exact and int8 searches, the journaled adds, the beams on reopened
-indexes, the compressed and projected reads, the host sweeps, the HTTP
-reads, the sharded reads and build) runs with every launch
+exact and int8 searches, the journaled adds, their replay, the beams on
+reopened indexes, the compressed and projected reads, the host sweeps, the
+HTTP reads, the sharded reads and build) runs with every launch
 count set to 0 just
 before it; its counts (pass A's also by form) are read and printed just
 after, and a kernel (or pass-A form) the path runs must have launched.
@@ -318,6 +328,7 @@ INT8_B, INT8_BATCHES = 1024, 8      # the two query batches, 4 times
 # phase 15: the journal written over phase 7's checkpointed index
 PERSIST_ADDS, PERSIST_DELETES, PERSIST_PATCHES = 50_000, 1_000, 100
 PERSIST_SEED, PERSIST_B, PERSIST_EF = 1240, 1024, 128
+HOST_TOPK_B, HOST_TOPK_N = 256, 100_000   # the host runtime's exact top-k
 INT8_COMPRESS_RECALL_MIN = 0.90
 # phase 16: bench.py's anisotropic collection (bench.py:819-900)
 PROJ_N, PROJ_DIM, PROJ_SEED = 400_000, 384, 424242
@@ -1417,6 +1428,20 @@ def persist_checks(torch, eng, want, Q, X, X2, dead, label: str,
             "beam_launches": counts["gather_dist"]}
 
 
+def same_frames(got, frames, corrupt, label: str) -> None:
+    """The C++ scanner's frames (host_native.Frames) against the Python
+    scanner's [(payload offset, length, opcode)] and corrupt offsets."""
+    want = np.array(frames, np.int64).reshape(-1, 3)
+    if not (np.array_equal(got.offsets, want[:, 0])
+            and np.array_equal(got.lengths, want[:, 1])
+            and np.array_equal(got.opcodes, want[:, 2])
+            and got.corrupt.tolist() == corrupt):
+        raise AssertionError(f"{label}: the C++ scanner's {len(got.offsets)}"
+                             f" frames / {len(got.corrupt)} regions differ "
+                             f"from the Python scanner's {len(frames)} / "
+                             f"{len(corrupt)}")
+
+
 def du(root: str) -> int:
     import os
     return sum(os.path.getsize(os.path.join(d, f))
@@ -1439,6 +1464,7 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
     import shutil
     import tempfile
 
+    from kektordb_tpu_torch import host_native
     from kektordb_tpu_torch.engine import Engine, EngineConfig
     from kektordb_tpu_torch.ops import distance as dist
     from kektordb_tpu_torch.ops import scan
@@ -1511,11 +1537,20 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
         aof_bytes = os.path.getsize(aof_path)
         e1._aof.close()       # flushes nothing more: a crash leaves this
         drop(e1)
-        t0 = time.perf_counter()
         with open(aof_path, "rb") as f:
-            frames, corrupt = aof.scan_frames(f.read())
+            journal = f.read()
+        t0 = time.perf_counter()
+        frames, corrupt = aof.scan_frames(journal)
         scan_s = time.perf_counter() - t0
-        e2, open2_s, load2_s = open_engine("checkpoint + journal")
+        t0 = time.perf_counter()
+        native = host_native.scan_frames(journal)
+        cpp_s = time.perf_counter() - t0
+        same_frames(native, frames, corrupt, "the journal")
+        host_native.scan_frames.calls = 0
+        (e2, open2_s, load2_s), _, replay_counts = counted(
+            torch, "replay of the journal (checkpoint + journal open)",
+            lambda: open_engine("checkpoint + journal"), ("gather_dist",))
+        scanner_calls = host_native.scan_frames.calls
         replay_s = open2_s - open1_s
         ops = PERSIST_ADDS + PERSIST_DELETES + 3 * PERSIST_PATCHES + 1
         print(f"phase persist: journaled {PERSIST_ADDS} adds (graph linked "
@@ -1527,12 +1562,44 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
               f"(checkpoint + replay) {open2_s:.3f} s, searchable after "
               f"{load2_s:.3f} s; replay {replay_s:.3f} s over the "
               f"checkpoint-only open ({PERSIST_ADDS / replay_s:.1f} rows/s, "
-              f"{ops / replay_s:.1f} ops/s), frame scanner (Python) "
-              f"{scan_s:.3f} s = {scan_s / replay_s:.3f} of it [{card}]",
-              flush=True)
+              f"{ops / replay_s:.1f} ops/s; C++ scanner calls "
+              f"{scanner_calls}, gather_dist launches "
+              f"{replay_counts['gather_dist']}) [{card}]", flush=True)
+        print(f"phase persist: frame scanners over the {aof_bytes}-byte "
+              f"journal, the same {len(frames)} frames: C++ (host_native) "
+              f"{cpp_s * 1e3:.3f} ms = {cpp_s / replay_s:.5f} of the "
+              f"replay, Python {scan_s * 1e3:.3f} ms = "
+              f"{scan_s / replay_s:.5f} of it ({scan_s / cpp_s:.1f}x) "
+              f"[{card}]", flush=True)
         if len(frames) != ops or corrupt:
             raise AssertionError(f"journal: {len(frames)} frames for {ops} "
                                  f"ops, {len(corrupt)} corrupt regions")
+        if scanner_calls < 1:
+            raise AssertionError("the replay did not run the C++ scanner")
+        # the replay links the same rows in the same chunks as their add
+        if replay_counts["gather_dist"] < add_counts["gather_dist"] // 2:
+            raise AssertionError(
+                f"the replay launched gather_dist "
+                f"{replay_counts['gather_dist']} times, the add "
+                f"{add_counts['gather_dist']}")
+        bad = bytearray(journal)
+        bad[len(bad) // 2:len(bad) // 2 + 4096] = bytes(4096)
+        del bad[-5:]                              # a torn last frame
+        bad = bytes(bad)
+        bad_frames, bad_corrupt = aof.scan_frames(bad)
+        t0 = time.perf_counter()
+        bad_native = host_native.scan_frames(bad)
+        bad_s = time.perf_counter() - t0
+        same_frames(bad_native, bad_frames, bad_corrupt,
+                    "the corrupted journal")
+        print(f"phase persist: a copy with 4096 bytes zeroed mid-journal "
+              f"and a torn tail: both scanners {len(bad_frames)} frames "
+              f"(of {len(frames)}), corrupt regions at "
+              f"{bad_corrupt} (C++ {bad_s * 1e3:.3f} ms) [{card}]",
+              flush=True)
+        if len(bad_corrupt) != 2:
+            raise AssertionError(f"{len(bad_corrupt)} corrupt regions in a "
+                                 "journal corrupted in 2 places")
         c2 = persist_checks(torch, e2, want, Q, X, X2, dead,
                             "checkpoint + replay", card)
         t0 = time.perf_counter()
@@ -1592,12 +1659,60 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     return {"save_s": save_s, "load_s": load1_s, "replay_s": replay_s,
             "replay_rows_s": PERSIST_ADDS / replay_s,
-            "scan_share": scan_s / replay_s, "close_s": close_s,
+            "scan_share": scan_s / replay_s, "cpp_scan_s": cpp_s,
+            "cpp_scan_share": cpp_s / replay_s, "close_s": close_s,
+            "replay_launches": replay_counts["gather_dist"],
             "load_after_close_s": load3_s, "bytes": disk,
             "add_launches": add_counts["gather_dist"],
             "beam_launches": c2["beam_launches"] + c3["beam_launches"],
             "int8_recall": rec,
             "int8_launches": qcounts["scan_pass_a"]}
+
+
+def host_topk_check(torch, main: dict, card: str) -> dict:
+    """The host runtime's exact top-k (host_native.bruteforce_topk, f32 on
+    the host's cores) on HOST_TOPK_B of phase 4's queries over HOST_TOPK_N
+    of its rows against the card's distance.brute_force_topk: each place's
+    distance within RTOL of its terms' magnitudes (|q|^2 + |x|^2 +
+    2|q||x|: the two sum in other orders), the same ids except where two
+    adjacent distances tie within that tolerance. Both timed."""
+    from kektordb_tpu_torch import host_native
+    from kektordb_tpu_torch.ops import distance as dist
+    q = main["queries"][:HOST_TOPK_B]
+    rows = main["base"][:HOST_TOPK_N]
+    t0 = time.perf_counter()
+    hd, hi = host_native.bruteforce_topk(q, rows, K)
+    host_s = time.perf_counter() - t0
+    qt, rt = torch.from_numpy(q).to(DEV), torch.from_numpy(rows).to(DEV)
+    dist.brute_force_topk(qt, rt, K)                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cd, ci = dist.brute_force_topk(qt, rt, K)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cd, ci = cd.cpu().numpy(), ci.cpu().numpy()
+    q2 = np.einsum("bd,bd->b", q, q)[:, None].astype(np.float64)
+    x2 = np.einsum("bkd,bkd->bk", rows[hi], rows[hi]).astype(np.float64)
+    tol = RTOL * (q2 + x2 + 2.0 * np.sqrt(q2 * x2))
+    err = np.abs(hd.astype(np.float64) - cd)
+    if np.any(err > tol):
+        raise AssertionError(f"host top-k: a distance off by {err.max()}")
+    excused = 0
+    for b, j in zip(*np.nonzero(hi != ci)):
+        if not any(0 <= i < K and abs(hd[b, i] - hd[b, j]) <= tol[b, j]
+                   for i in (j - 1, j + 1)):
+            raise AssertionError(f"host top-k: query {b} place {j}: row "
+                                 f"{hi[b, j]} against the card's "
+                                 f"{ci[b, j]}")
+        excused += 1
+    print(f"phase persist: host_native.bruteforce_topk B={HOST_TOPK_B} "
+          f"over {HOST_TOPK_N} x {DIM} rows, k={K}: {host_s * 1e3:.1f} ms "
+          f"on the host against distance.brute_force_topk's "
+          f"{card_s * 1e3:.3f} ms on the card (synchronised); the same ids "
+          f"({excused} places excused as ties), distances max |err| "
+          f"{err.max():.6g} [{card}]", flush=True)
+    return {"host_ms": host_s * 1e3, "card_ms": card_s * 1e3,
+            "excused": excused}
 
 
 def vacuum_and_import(torch, card: str) -> None:
@@ -3782,12 +3897,17 @@ def main() -> int:
     print(f"phase device: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    from kektordb_tpu_torch import native
+    from kektordb_tpu_torch import host_native, native
     t0 = time.perf_counter()
     lib = native.build()
     build_s = time.perf_counter() - t0
     print(f"phase build: {lib.name} in {build_s:.3f} s (one nvcc per "
           "source, in parallel, then one link)", flush=True)
+    t0 = time.perf_counter()
+    hlib = host_native.build()
+    print(f"phase build: {hlib.name} (the host runtime, g++ "
+          f"{' '.join(host_native.CXX_FLAGS)}) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     for ln in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in ln or "spill" in ln:
             print(f"phase build: {ln.strip()}", flush=True)
@@ -3805,6 +3925,7 @@ def main() -> int:
     gather = check_gather(torch, card)
     graph = graph_path(torch, card)
     persist = persist_phase(torch, graph, card)
+    host_topk = host_topk_check(torch, main, card)
     vacuum_and_import(torch, card)
     probes = probes_phase(torch, card)
     eng, Q, path_errs = hybrid_phase(torch, card)
@@ -3826,8 +3947,11 @@ def main() -> int:
     print(f"phase times: persistence at {GRAPH_N} x {DIM}: save "
           f"{persist['save_s']:.3f} s, load {persist['load_s']:.3f} s, replay "
           f"{persist['replay_s']:.3f} s ({persist['replay_rows_s']:.1f} "
-          f"rows/s, scanner share {persist['scan_share']:.3f}), "
-          f"{persist['bytes']} bytes on disk; projected read "
+          f"rows/s; frame scanner share: C++ "
+          f"{persist['cpp_scan_share']:.5f}, Python "
+          f"{persist['scan_share']:.5f}), {persist['bytes']} bytes on "
+          f"disk; host exact top-k {host_topk['host_ms']:.1f} ms against "
+          f"the card's {host_topk['card_ms']:.3f}; projected read "
           f"{proj['qps']:.1f} QPS at recall@{K} {proj['recall']:.4f} "
           f"(full-dimension {proj['full_qps']:.1f} QPS at "
           f"{proj['full_recall']:.4f}) [{card}]", flush=True)
@@ -3935,6 +4059,8 @@ def main() -> int:
             "beam (bf16 index)": bf16["beam_launches"],
             "journaled adds, graph linked (phase 15)":
                 persist["add_launches"],
+            "replay of the journaled adds (phase 15)":
+                persist["replay_launches"],
             "beam on the reopened indexes (phase 15)":
                 persist["beam_launches"],
             "projected re-rank (phase 16)": proj["gather_launches"],

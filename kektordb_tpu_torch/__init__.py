@@ -20,6 +20,11 @@ H100 (sm_90a).
   device.py device selection, float32 precision (TF32 off), and the
             device-repeat setting (KEKTOR_TORCH_DEVICE_REPEAT)
   native.py builds csrc/ with nvcc at first use and loads it with ctypes
+  host_native.py
+            the host runtime (the JAX package's native/): csrc/host/
+            kektor_native.cpp built by g++ at first use, bound with ctypes:
+            the journal frame scanner that replay runs, CRC32, the exact
+            top-k on the host, the "KTNA" arena files
 
 The package imports torch and never jax, and nothing of the JAX package.
 """

@@ -9,9 +9,10 @@ flush every 100 ms, fsync every 1 s, an inline flush at 1000 entries;
 snapshot mode diverts writes to an in-memory shadow buffer
 (lazy_aof.go:248-268).
 
-The journal carries the mutations between two checkpoints. Frames are
-found by one scanner in Python (`scan_frames`); the JAX package also has
-a C++ one that returns the same frames.
+The journal carries the mutations between two checkpoints. Replay finds
+its frames with the host runtime's C++ scanner (`host_native.scan_frames`,
+every frame however many, each corrupt region's offset); `scan_frames`
+here is its plain version in Python, which returns the same frames.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import threading
 import time
 import zlib
 from typing import Callable, Iterator, Optional
+
+from .. import host_native
 
 MAGIC = 0xA5
 _HEADER = struct.Struct("<BBII")   # magic, opcode, payload_len, crc32
@@ -99,18 +102,20 @@ def read_frames(path: str,
                 on_corruption: Optional[Callable[[int], None]] = None
                 ) -> Iterator[tuple[int, bytes]]:
     """(opcode, payload) of every valid frame of the journal at `path`
-    (none if it does not exist); `on_corruption` gets the offset of each
-    corrupt region skipped."""
+    (none if it does not exist), found by the C++ scanner;
+    `on_corruption` gets the offset of each corrupt region skipped."""
     try:
         with open(path, "rb") as f:
             buf = f.read()
     except FileNotFoundError:
         return
-    frames, corrupt = scan_frames(buf)
+    frames = host_native.scan_frames(buf)
     if on_corruption:
-        for pos in corrupt:
+        for pos in frames.corrupt.tolist():
             on_corruption(pos)
-    for off, ln, opcode in frames:
+    for off, ln, opcode in zip(frames.offsets.tolist(),
+                               frames.lengths.tolist(),
+                               frames.opcodes.tolist()):
         yield opcode, buf[off:off + ln]
 
 

@@ -8,8 +8,10 @@ boundary is checked in a fresh interpreter that imports the server, the
 services, the CLI and the host arena, and runs a filtered, a hybrid
 (text_query), a decayed and a host-index search; a second one imports the
 sharded and replicated serving modules, the client package and the MiniLM
-encoder, and runs a sharded Engine search and an encoder forward; neither
-JAX, ml_dtypes nor the JAX package may be loaded after either."""
+encoder, and runs a sharded Engine search and an encoder forward; a third
+imports the host runtime (`host_native`) and runs each of its entries and
+a journal replay on its frame scanner; neither JAX, ml_dtypes nor the JAX
+package may be loaded after any of them."""
 
 import os
 import subprocess
@@ -102,6 +104,32 @@ enc = MiniLMEncoder.from_params(
 assert enc.encode(["a", "b"]).shape == (2, 32)
 """
 
+_CHILD_HOST = """
+import sys, tempfile
+import numpy as np
+from kektordb_tpu_torch import host_native as hn
+from kektordb_tpu_torch.engine import Engine, EngineConfig
+assert hn.crc32(b"hello") == 907060870
+X = np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32)
+d, i = hn.bruteforce_topk(X[:3], X, 2)
+assert i[:, 0].tolist() == [0, 1, 2], i
+with tempfile.TemporaryDirectory() as t:
+    hn.arena_write(t + "/a.ktna", X)
+    assert np.array_equal(hn.arena_read(t + "/a.ktna", 10, 5), X[10:15])
+    e = Engine(EngineConfig(device="cpu", data_dir=t,
+                            start_background=False)).open()
+    e.create_index("f", kind="flat")
+    for j in range(5):
+        e.add("f", f"v{j}", X[j])
+    e._aof.flush(fsync=True)
+    e._aof.close()
+    calls = hn.scan_frames.calls
+    e = Engine(EngineConfig(device="cpu", data_dir=t,
+                            start_background=False)).open()
+    assert hn.scan_frames.calls > calls and len(e.indexes["f"].index) == 5
+    e.close()
+"""
+
 
 def _env():
     env = dict(os.environ)
@@ -120,6 +148,14 @@ def test_engine_search_imports_no_jax():
 
 def test_parallel_client_minilm_import_no_jax():
     r = subprocess.run([sys.executable, "-c", _CHILD_NEW + _LEAKS],
+                       cwd=ROOT, env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
+def test_host_runtime_imports_no_jax():
+    r = subprocess.run([sys.executable, "-c", _CHILD_HOST + _LEAKS],
                        cwd=ROOT, env=_env(), capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
