@@ -328,6 +328,11 @@ INT8_B, INT8_BATCHES = 1024, 8      # the two query batches, 4 times
 # phase 15: the journal written over phase 7's checkpointed index
 PERSIST_ADDS, PERSIST_DELETES, PERSIST_PATCHES = 50_000, 1_000, 100
 PERSIST_SEED, PERSIST_B, PERSIST_EF = 1240, 1024, 128
+# the journal's order cases: links of PERSIST_LINKS ids made before their
+# delete, after their re-add, and from rows deleted later; a second default
+# index of SECOND_N rows dropped and created again with SECOND_N others; a
+# host index created empty, given HOST_LAZY_ROWS rows after the reopens
+PERSIST_LINKS, SECOND_N, HOST_LAZY_ROWS = 100, 20_000, 4096
 HOST_TOPK_B, HOST_TOPK_N = 256, 100_000   # the host runtime's exact top-k
 INT8_COMPRESS_RECALL_MIN = 0.90
 # phase 16: bench.py's anisotropic collection (bench.py:819-900)
@@ -1369,11 +1374,12 @@ def same_reads(want, got, label: str) -> int:
     return excused
 
 
-def persist_checks(torch, eng, want, Q, X, X2, dead, label: str,
+def persist_checks(torch, eng, want, Q, ext, allx, dead, label: str,
                    card: str) -> dict:
     """A reopened persistence engine against what its writer acknowledged:
-    the B=PERSIST_B scan read (`same_reads`), every row's vector bit-equal
-    (the checkpoint's SIFT-like rows and the journaled adds), the deleted
+    the B=PERSIST_B scan read (`same_reads`), every live row's vector
+    bit-equal (`allx`, in the order of `ext`: the checkpoint's SIFT-like
+    rows, the journaled adds, the re-added rows' new vectors), the deleted
     ids gone, the KV pairs, links, metadata patches and VCONFIG back, and
     beam recall@K >= BEAM_RECALL_MIN against the exact oracle over the
     live rows. Returns {"excused", "beam_recall", "beam_launches"}."""
@@ -1381,8 +1387,6 @@ def persist_checks(torch, eng, want, Q, X, X2, dead, label: str,
     idx = eng.indexes["graph"].index
     got = eng.search("graph", Q, k=K)
     excused = same_reads(want, got, label)
-    ext = [f"g{i}" for i in range(GRAPH_N)] + \
-        [f"p{i}" for i in range(PERSIST_ADDS)]
     gone = set(dead)
     live = [e not in gone for e in ext]
     rows = [idx.ids.get(e) for e, ok in zip(ext, live) if ok]
@@ -1390,7 +1394,6 @@ def persist_checks(torch, eng, want, Q, X, X2, dead, label: str,
                                            for e in dead):
         raise AssertionError(f"{label}: an acknowledged add is missing, or "
                              "a deleted id is back")
-    allx = np.concatenate([X, X2])
     vecs = idx.state.vectors[torch.tensor(rows, device=DEV).long()]
     if not torch.equal(vecs, torch.from_numpy(allx[np.array(live)]).to(DEV)):
         raise AssertionError(f"{label}: a vector did not read back "
@@ -1426,6 +1429,98 @@ def persist_checks(torch, eng, want, Q, X, X2, dead, label: str,
                              f"{BEAM_RECALL_MIN}")
     return {"excused": excused, "beam_recall": rec,
             "beam_launches": counts["gather_dist"]}
+
+
+def order_checks(torch, eng, ctx: dict, label: str, card: str,
+                 host_rows=None) -> None:
+    """The journal's order cases on a reopened engine, against what the
+    writer acknowledged: each re-added row's vector bit-equal to its new
+    one, and found first by a search with it at a distance within float
+    rounding of 0 (RTOL of the L2 terms' magnitude, 4|v|^2); each link made
+    before a delete gone, each made after the re-add there, each link from
+    a row deleted later gone; the dropped and re-created index holding
+    exactly its new ids and vectors; the host index created empty still
+    asking for the "auto" projection. With `host_rows` it gets its first
+    rows here and must resolve "auto" as a fresh index does, with the
+    same reads."""
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    idx = eng.indexes["graph"].index
+    readd, X3 = ctx["readd"], ctx["X3"]
+    rows = [idx.ids.get(e) for e in readd]
+    if any(r is None for r in rows):
+        raise AssertionError(f"{label}: a re-added id is missing")
+    vecs = idx.state.vectors[torch.tensor(rows, device=DEV).long()]
+    if not torch.equal(vecs, torch.from_numpy(X3).to(DEV)):
+        raise AssertionError(f"{label}: a re-added row kept its old vector")
+    hits = eng.search("graph", X3, k=1)
+    top = [q[0]["id"] if q else None for q in hits]
+    d = np.array([q[0]["distance"] if q else np.inf for q in hits])
+    tol = RTOL * 4.0 * np.einsum("bd,bd->b", X3, X3)
+    if top != readd or np.any(np.abs(d) > tol):
+        bad = [j for j in range(len(readd)) if top[j] != readd[j]
+               or abs(d[j]) > tol[j]]
+        raise AssertionError(f"{label}: {len(bad)} re-added vectors not "
+                             f"found first at distance 0 (e.g. "
+                             f"{readd[bad[0]]}: {top[bad[0]]} at "
+                             f"{d[bad[0]]})")
+    for i, (src, dst) in enumerate(zip(readd, ctx["link_to"])):
+        links = {(x["relation"], x["target"])
+                 for x in eng.get_edges("graph", src)}
+        if ("before", dst) in links or ("again", dst) not in links:
+            raise AssertionError(f"{label}: {src}'s links {sorted(links)}: "
+                                 "the one made before its delete is back, "
+                                 "or the one after its re-add is lost")
+        if eng.get_edges("graph", ctx["gone"][i]):
+            raise AssertionError(f"{label}: a link from the deleted "
+                                 f"{ctx['gone'][i]} is back")
+    second = eng.indexes["second"].index
+    ids = ctx["second_ids"]
+    if len(second.ids) != len(ids) or any(second.ids.get(e) is None
+                                          for e in ids):
+        raise AssertionError(f"{label}: the re-created index holds "
+                             f"{len(second.ids)} ids, not its "
+                             f"{len(ids)} new ones")
+    rows2 = torch.tensor([second.ids.get(e) for e in ids], device=DEV)
+    if not torch.equal(second.state.vectors[rows2.long()],
+                       torch.from_numpy(ctx["X5"]).to(DEV)):
+        raise AssertionError(f"{label}: a re-created index's vector did "
+                             "not read back bit-equal")
+    host = eng.indexes["lazyhost"].index
+    note = "still empty, its request \"auto\""
+    if host_rows is None:
+        if type(host).__name__ != "_LazyIndex" \
+                or getattr(host, "proj_request", 0) is not None:
+            raise AssertionError(f"{label}: the empty host index lost its "
+                                 "\"auto\" projection request")
+    else:
+        fresh = Engine(EngineConfig(device=DEV, start_background=False))
+        fresh.create_index("lazyhost", kind="host")
+        hids = [f"h{i}" for i in range(len(host_rows))]
+        for e in (eng, fresh):
+            e.add_batch("lazyhost", hids, host_rows)
+        host = eng.indexes["lazyhost"].index
+        want = fresh.indexes["lazyhost"].index
+        got_r = eng.search("lazyhost", host_rows[:64], k=K)
+        want_r = fresh.search("lazyhost", host_rows[:64], k=K)
+        if (host._proj_auto, host.proj_dim) != (want._proj_auto,
+                                                want.proj_dim) \
+                or not host._proj_auto:
+            raise AssertionError(
+                f"{label}: the host index resolved its projection as "
+                f"(auto {host._proj_auto}, p {host.proj_dim}), a fresh one "
+                f"as (auto {want._proj_auto}, p {want.proj_dim})")
+        same_reads(want_r, got_r, f"{label} host index")
+        note = (f"{len(hids)} first rows added, \"auto\" as a fresh "
+                f"index's (p {host.proj_dim} below one chunk), the same "
+                "reads")
+        fresh.indexes.clear()
+    print(f"phase persist: {label}: {len(readd)} re-added rows bit-equal, "
+          f"each found first at |d| <= {np.abs(d).max():.4g} (tol "
+          f"{tol.min():.4g}); {len(ctx['link_to'])} links "
+          f"before the deletes gone, after the re-adds there; "
+          f"{len(ctx['gone'])} links from deleted rows gone; the re-created "
+          f"index holds its {len(ids)} new ids, bit-equal; the host index "
+          f"{note} [{card}]", flush=True)
 
 
 def same_frames(got, frames, corrupt, label: str) -> None:
@@ -1520,14 +1615,51 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
             lambda: e1.add_batch("graph", [f"p{i}" for i in
                                            range(PERSIST_ADDS)], X2),
             ("gather_dist",))
-        dead = [f"g{i * 997}" for i in range(PERSIST_DELETES)]
-        for e in dead:
+        # the checkpoint's rows deleted, then added again with new vectors;
+        # links of some made before the delete and after the re-add
+        readd = [f"g{i * 997}" for i in range(PERSIST_DELETES)]
+        link_to = [f"g{i * 13 + 5}" for i in range(PERSIST_LINKS)]
+        X3 = make_sift_like(PERSIST_DELETES, DIM, seed=PERSIST_SEED + 1)
+        X4 = make_sift_like(SECOND_N, DIM, seed=PERSIST_SEED + 2)
+        X5 = make_sift_like(SECOND_N, DIM, seed=PERSIST_SEED + 3)
+        second_ids = [f"n{i}" for i in range(SECOND_N)]
+        for i in range(PERSIST_LINKS):
+            e1.link("graph", readd[i], "before", link_to[i])
+        for e in readd:
             e1.delete("graph", e)
+
+        def order_writes():
+            e1.add_batch("graph", readd, X3)
+            # a second default index, dropped and created again
+            e1.create_index("second")
+            e1.add_batch("second", [f"d{i}" for i in range(SECOND_N)], X4)
+            e1.drop_index("second")
+            e1.create_index("second")
+            e1.add_batch("second", second_ids, X5)
+        _, order_s, order_counts = counted(
+            torch, f"journaled re-adds ({PERSIST_DELETES}) and the second "
+            f"index's two generations ({SECOND_N} rows each)",
+            order_writes, ("gather_dist",))
+        for i in range(PERSIST_LINKS):
+            e1.link("graph", readd[i], "again", link_to[i])
         for i in range(PERSIST_PATCHES):
             e1.update_metadata("graph", f"g{i * 13 + 1}", {"tag": i})
             e1.kv_set(f"key{i}", f"value{i}".encode())
             e1.link("graph", f"g{i * 7 + 2}", "near", f"p{i}")
+        # links from journaled rows deleted later in the journal
+        dead = [f"p{PERSIST_ADDS - 1 - i}" for i in range(PERSIST_LINKS)]
+        for src, dst in zip(dead, link_to):
+            e1.link("graph", src, "from", dst)
+        for e in dead:
+            e1.delete("graph", e)
+        e1.create_index("lazyhost", kind="host")
         e1.configure_index("graph", {"ef_search": PERSIST_EF})
+        ctx = {"readd": readd, "X3": X3, "link_to": link_to, "gone": dead,
+               "second_ids": second_ids, "X5": X5}
+        ext = [f"g{i}" for i in range(GRAPH_N)] + \
+            [f"p{i}" for i in range(PERSIST_ADDS)]
+        allx = np.concatenate([X, X2])
+        allx[[i * 997 for i in range(PERSIST_DELETES)]] = X3
         want = e1.search("graph", Q, k=K)
         time.sleep(1.5)       # past the writer's flush and fsync cadence
         if e1._aof._buf:
@@ -1547,24 +1679,53 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
         cpp_s = time.perf_counter() - t0
         same_frames(native, frames, corrupt, "the journal")
         host_native.scan_frames.calls = 0
-        (e2, open2_s, load2_s), _, replay_counts = counted(
-            torch, "replay of the journal (checkpoint + journal open)",
-            lambda: open_engine("checkpoint + journal"), ("gather_dist",))
+        # each index's bulk apply timed on its own (the class's method,
+        # wrapped for this one open)
+        apply_s = {}
+        replay_entries = Engine._replay_entries
+
+        def timed_entries(self, name, ops):
+            t = time.perf_counter()
+            replay_entries(self, name, ops)
+            torch.cuda.synchronize()
+            apply_s[name] = time.perf_counter() - t
+        Engine._replay_entries = timed_entries
+        try:
+            (e2, open2_s, load2_s), _, replay_counts = counted(
+                torch, "replay of the journal (checkpoint + journal open)",
+                lambda: open_engine("checkpoint + journal"),
+                ("gather_dist",))
+        finally:
+            Engine._replay_entries = replay_entries
         scanner_calls = host_native.scan_frames.calls
         replay_s = open2_s - open1_s
-        ops = PERSIST_ADDS + PERSIST_DELETES + 3 * PERSIST_PATCHES + 1
+        graph_rows = PERSIST_ADDS - PERSIST_LINKS + PERSIST_DELETES
+        replay_rows = graph_rows + SECOND_N
+        ops = PERSIST_ADDS + 2 * PERSIST_DELETES + 3 * PERSIST_PATCHES + 1 \
+            + 4 * PERSIST_LINKS + 2 * SECOND_N + 4
         print(f"phase persist: journaled {PERSIST_ADDS} adds (graph linked "
               f"in {add_s:.3f} s, gather_dist launches "
-              f"{add_counts['gather_dist']}), {PERSIST_DELETES} deletes, "
-              f"{PERSIST_PATCHES} metadata patches, KV sets and links, one "
-              f"VCONFIG: {len(frames)} frames, {aof_bytes} bytes, "
-              f"{len(corrupt)} corrupt; crash, then Engine(data_dir) open "
-              f"(checkpoint + replay) {open2_s:.3f} s, searchable after "
-              f"{load2_s:.3f} s; replay {replay_s:.3f} s over the "
-              f"checkpoint-only open ({PERSIST_ADDS / replay_s:.1f} rows/s, "
-              f"{ops / replay_s:.1f} ops/s; C++ scanner calls "
-              f"{scanner_calls}, gather_dist launches "
-              f"{replay_counts['gather_dist']}) [{card}]", flush=True)
+              f"{add_counts['gather_dist']}), {PERSIST_DELETES} deletes and "
+              f"re-adds of checkpointed rows and {SECOND_N} + {SECOND_N} "
+              f"rows of a dropped and re-created index ({order_s:.3f} s, "
+              f"gather_dist launches {order_counts['gather_dist']}), "
+              f"{PERSIST_PATCHES} metadata patches, KV sets and links, "
+              f"{3 * PERSIST_LINKS} links around deletes and "
+              f"{PERSIST_LINKS} deletes, an empty host index, one VCONFIG: "
+              f"{len(frames)} frames, {aof_bytes} bytes, {len(corrupt)} "
+              f"corrupt; crash, then Engine(data_dir) open (checkpoint + "
+              f"replay) {open2_s:.3f} s, searchable after {load2_s:.3f} s; "
+              f"replay {replay_s:.3f} s over the checkpoint-only open "
+              f"({replay_rows} rows: {replay_rows / replay_s:.1f} rows/s, "
+              f"{ops / replay_s:.1f} ops/s; the {GRAPH_N}-row index's bulk apply "
+              f"{apply_s['graph']:.3f} s for {graph_rows} rows, "
+              f"{graph_rows / apply_s['graph']:.1f} rows/s; the re-created "
+              f"index's {apply_s.get('second', np.nan):.3f} s for "
+              f"{SECOND_N} rows; C++ "
+              f"scanner calls {scanner_calls}, gather_dist launches "
+              f"{replay_counts['gather_dist']} against the writer's "
+              f"{add_counts['gather_dist'] + order_counts['gather_dist']}) "
+              f"[{card}]", flush=True)
         print(f"phase persist: frame scanners over the {aof_bytes}-byte "
               f"journal, the same {len(frames)} frames: C++ (host_native) "
               f"{cpp_s * 1e3:.3f} ms = {cpp_s / replay_s:.5f} of the "
@@ -1600,8 +1761,9 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
         if len(bad_corrupt) != 2:
             raise AssertionError(f"{len(bad_corrupt)} corrupt regions in a "
                                  "journal corrupted in 2 places")
-        c2 = persist_checks(torch, e2, want, Q, X, X2, dead,
+        c2 = persist_checks(torch, e2, want, Q, ext, allx, dead,
                             "checkpoint + replay", card)
+        order_checks(torch, e2, ctx, "checkpoint + replay", card)
         t0 = time.perf_counter()
         e2.close()
         close_s = time.perf_counter() - t0
@@ -1609,27 +1771,28 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
         disk = du(root)
         e3, open3_s, load3_s = open_engine("checkpoint")
         print(f"phase persist: close() (checkpoint of "
-              f"{GRAPH_N + PERSIST_ADDS} rows) {close_s:.3f} s, {disk} bytes "
+              f"{GRAPH_N + PERSIST_ADDS - PERSIST_LINKS + SECOND_N} rows) "
+              f"{close_s:.3f} s, {disk} bytes "
               f"on disk; Engine(data_dir) open (checkpoint only) "
               f"{open3_s:.3f} s, searchable after {load3_s:.3f} s [{card}]",
               flush=True)
-        c3 = persist_checks(torch, e3, want, Q, X, X2, dead,
+        c3 = persist_checks(torch, e3, want, Q, ext, allx, dead,
                             "checkpoint-only reopen", card)
+        order_checks(torch, e3, ctx, "checkpoint-only reopen", card,
+                     host_rows=make_sift_like(HOST_LAZY_ROWS, DIM,
+                                              seed=PERSIST_SEED + 4))
 
         idx = e3.indexes["graph"].index
         idx.compress_serving("int8")
         live = torch.ones(GRAPH_N + PERSIST_ADDS, dtype=torch.bool,
                           device=DEV)
-        live[torch.tensor([i * 997 for i in range(PERSIST_DELETES)],
-                          device=DEV)] = False
-        allx = torch.from_numpy(np.concatenate([X, X2])).to(DEV)
-        gt = dist.brute_force_topk(torch.from_numpy(Q).to(DEV), allx, K,
+        live[GRAPH_N + PERSIST_ADDS - PERSIST_LINKS:] = False     # `dead`
+        gt = dist.brute_force_topk(torch.from_numpy(Q).to(DEV),
+                                   torch.from_numpy(allx).to(DEV), K,
                                    valid=live)[1].cpu().numpy()
         wq, _, qcounts = counted(torch, "compressed int8 Engine.search",
                                  lambda: e3.search("graph", Q, k=K),
                                  ("scan_pass_a",), (scan.FORM_ASYM_FAST,))
-        ext = [f"g{i}" for i in range(GRAPH_N)] + \
-            [f"p{i}" for i in range(PERSIST_ADDS)]
         rec = float(np.mean([len({h["id"] for h in wq[b]}
                                  & {ext[r] for r in gt[b]}) / K
                              for b in range(len(Q))]))
@@ -1658,10 +1821,12 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"save_s": save_s, "load_s": load1_s, "replay_s": replay_s,
-            "replay_rows_s": PERSIST_ADDS / replay_s,
+            "replay_rows_s": replay_rows / replay_s,
             "scan_share": scan_s / replay_s, "cpp_scan_s": cpp_s,
             "cpp_scan_share": cpp_s / replay_s, "close_s": close_s,
             "replay_launches": replay_counts["gather_dist"],
+            "replay_rows": replay_rows, "graph_apply_s": apply_s["graph"],
+            "order_launches": order_counts["gather_dist"],
             "load_after_close_s": load3_s, "bytes": disk,
             "add_launches": add_counts["gather_dist"],
             "beam_launches": c2["beam_launches"] + c3["beam_launches"],

@@ -343,6 +343,8 @@ class Engine:
                 icfg.max_unlinked = max(0, int(config["max_unlinked"]))
             if "serve_proj_dim" in config:
                 icfg.serve_proj_dim = max(0, int(config["serve_proj_dim"]))
+                if isinstance(h.index, _LazyIndex):
+                    h.index.proj_request = icfg.serve_proj_dim
                 if hasattr(h.index, "invalidate_projection"):
                     h.index.invalidate_projection()
             if "serve_proj_rerank" in config:
@@ -426,16 +428,19 @@ class Engine:
             self.save_snapshot()
 
     def delete(self, index: str, ext_id: str, _journal: bool = True) -> bool:
-        """VDEL: soft delete + metadata and graph-node removal."""
+        """VDEL: soft delete + metadata and graph-node removal. The frame
+        carries the time, so a replay ends the node's edges when this
+        did (the JAX package reads the frame and ignores it)."""
         h = self._handle(index)
         with self._lock:
             row = self._row_of(h, ext_id)
+            now = time.time()
             if _journal:
-                self._journal("VDEL", index, ext_id)
+                self._journal("VDEL", index, ext_id, str(now))
             ok = h.index.delete(ext_id)
             if ok and row is not None:
                 h.meta.remove(row)
-                self.graph.drop_node(f"{index}/{ext_id}")
+                self.graph.drop_node(f"{index}/{ext_id}", deleted_at=now)
         if ok:
             self.events.emit(Event("vector.delete", index, ext_id))
         return ok
@@ -1303,7 +1308,12 @@ class Engine:
                     "lazy": True, "metric": idx.metric,
                     "precision": idx.precision,
                     "config": asdict(idx.config),
-                    "kind": idx.kind, "shards": idx.shards, **common}
+                    "kind": idx.kind, "shards": idx.shards,
+                    # the request as create_index took it (None: a host
+                    # arena's "auto"); the JAX package ignores the key
+                    "proj_request": getattr(idx, "proj_request",
+                                            idx.config.serve_proj_dim),
+                    **common}
                 continue
             st = index_io.dump_index(idx, name, arrays)
             st.update({"lazy": False, **common,
@@ -1331,9 +1341,11 @@ class Engine:
                     shards = 0
                 cfg = index_io.cfg_from(st) if "config" in st \
                     else HNSWConfig()
-                h = IndexHandle(name, _LazyIndex(st["metric"],
-                                                 st["precision"], cfg,
-                                                 kind=kind, shards=shards),
+                lazy = _LazyIndex(st["metric"], st["precision"], cfg,
+                                  kind=kind, shards=shards)
+                if "proj_request" in st:
+                    lazy.proj_request = st["proj_request"]
+                h = IndexHandle(name, lazy,
                                 language=st.get("language", "english"))
             else:
                 h = IndexHandle(name, index_io.load_index(
@@ -1360,14 +1372,28 @@ class Engine:
 
     def _replay_aof(self) -> None:
         """replayAOF (recovery.go:78-457): read every frame, compact in
-        memory (a later op on a key overwrites an earlier one), then apply
-        in bulk: KV, then per index its creation, adds (one add_batch),
-        metadata, deletes, metadata patches of older rows and its last
-        VCONFIG, then the graph's links in journal order."""
+        memory, then apply in bulk: KV, then per index its creation, the
+        removal of each row a VDEL ended, its adds (one add_batch), its
+        metadata patches and VCONFIG, then the graph's links, unlinks and
+        node drops in journal order.
+
+        Compaction keeps what order decides. A VDROP ends an index's
+        generation: what came before it, the checkpoint's index included,
+        is dropped, and a later VCREATE starts anew. An id's last VADD
+        carries only its own metadata and the patches after it; a VDEL
+        before it removes the row that was there first. A VDEL that
+        removed a live row (the checkpoint's or an earlier VADD's) drops
+        the id's graph node at its place among the links, as `delete`
+        did."""
         corrupt: list[int] = []
         kv_data: dict[str, Optional[bytes]] = {}
-        idx_ops: dict[str, dict[str, Any]] = {}
+        idx_ops: dict[str, _IndexOps] = {}
         order: list[tuple] = []
+
+        def had_row(name: str, ext_id: str) -> bool:
+            h = self.indexes.get(name)
+            return h is not None and self._row_of(h, ext_id) is not None
+
         for _, payload in aoflib.read_frames(self._aof_path(),
                                              on_corruption=corrupt.append):
             try:
@@ -1378,7 +1404,7 @@ class Engine:
                 continue
             cmd = parts[0].decode().upper()
             try:
-                _compact_one(cmd, parts, kv_data, idx_ops, order)
+                _compact_one(cmd, parts, kv_data, idx_ops, order, had_row)
             except (ValueError, IndexError, TypeError):
                 log.warning("skipping bad AOF command %s", cmd)
         if corrupt:
@@ -1390,22 +1416,23 @@ class Engine:
             else:
                 self.kv.set(k, v)
         for name, ops in idx_ops.items():
-            if ops.get("dropped"):
+            if ops.dropped:
                 self.indexes.pop(name, None)
-                continue
-            if name not in self.indexes and ops.get("create"):
-                self._replay_create(name, ops["create"])
-            if name not in self.indexes:
-                continue
-            self._replay_entries(name, ops)
+            if name not in self.indexes and ops.create is not None:
+                self._replay_create(name, ops.create)
+            if name in self.indexes:
+                self._replay_entries(name, ops)
         for op in order:
             if op[0] == "GLINK":
                 _, src, rel, dst, w, props, ts = op
                 self.graph.add_edge(src, rel, dst, weight=w, props=props,
                                     created_at=ts)
-            else:
+            elif op[0] == "GUNLINK":
                 _, src, rel, dst, ts = op
                 self.graph.remove_edge(src, rel, dst, deleted_at=ts)
+            else:
+                _, node, ts = op
+                self.graph.drop_node(node, deleted_at=ts)
 
     def _replay_create(self, name: str, c: dict[str, Any]) -> None:
         # a journal written by a newer build may carry config keys this
@@ -1429,11 +1456,19 @@ class Engine:
                         "unsharded", name, c["shards"])
             self.create_index(name, _journal=False, **dict(c, shards=0))
 
-    def _replay_entries(self, name: str, ops: dict[str, Any]) -> None:
-        entries = ops.get("entries") or {}
-        alive = {e: v for e, v in entries.items() if v is not None}
+    def _replay_entries(self, name: str, ops: "_IndexOps") -> None:
         h = self.indexes[name]
-        todo = {e: v for e, v in alive.items() if self._row_of(h, e) is None}
+        # the rows a VDEL ended go first, so that their ids' re-adds pass
+        # add_batch's duplicate check; their graph nodes drop in `order`
+        for e in ops.removed:
+            row = self._row_of(h, e)
+            if row is not None and h.index.delete(e):
+                h.meta.remove(row)
+        # an id added here that still has a row was not deleted first: the
+        # journal overlaps the checkpoint (a crash between the checkpoint's
+        # save and the journal's truncation), whose row is the same write
+        todo = {e: v for e, v in ops.adds.items()
+                if self._row_of(h, e) is None}
         if todo:
             # per-entry shape tolerance: a wrong-dim frame must not stop
             # the database from opening
@@ -1454,26 +1489,43 @@ class Engine:
                 except Exception:
                     log.exception("AOF replay: bulk apply failed for %s",
                                   name)
-        for e, v in alive.items():
+        for e, v in ops.adds.items():
             if v[1] and e not in todo:
                 row = self._row_of(h, e)
                 if row is not None:
                     h.meta.update(row, v[1])
-        for e, v in entries.items():
-            if v is None:
-                self.delete(name, e, _journal=False)
         # VMETA patches of rows that predate this journal
-        for e, patch in ops.get("meta_patches") or []:
+        for e, patches in ops.patches.items():
             row = self._row_of(h, e)
             if row is not None:
-                h.meta.update(row, patch)
-        if ops.get("config"):
-            self.configure_index(name, ops["config"], _journal=False)
+                for patch in patches:
+                    h.meta.update(row, patch)
+        if ops.config:
+            self.configure_index(name, ops.config, _journal=False)
 
 
-def _compact_one(cmd: str, parts: list[bytes], kv_data, idx_ops,
-                 order) -> None:
-    """Fold one journaled command into the replay's compacted state."""
+class _IndexOps:
+    """One index's journaled ops since its last VDROP (a generation),
+    compacted: its VCREATE; each id's last VADD (vector bytes, and its
+    metadata with the VMETA patches after it); the ids a VDEL ended; the
+    VMETA patches of rows that predate the journal; its VCONFIGs merged.
+    `dropped`: a VDROP ended what came before (the checkpoint's index of
+    this name included). `live`: whether each id touched here has a row."""
+
+    def __init__(self, dropped: bool = False):
+        self.dropped = dropped
+        self.create: Optional[dict[str, Any]] = None
+        self.adds: dict[str, tuple[bytes, Optional[dict]]] = {}
+        self.removed: set[str] = set()
+        self.patches: dict[str, list[dict]] = {}
+        self.config: dict[str, Any] = {}
+        self.live: dict[str, bool] = {}
+
+
+def _compact_one(cmd: str, parts: list[bytes], kv_data, idx_ops, order,
+                 had_row) -> None:
+    """Fold one journaled command into the replay's compacted state.
+    `had_row(index, id)`: whether the checkpoint holds a row for the id."""
     def dec(i):
         return parts[i].decode()
 
@@ -1484,33 +1536,46 @@ def _compact_one(cmd: str, parts: list[bytes], kv_data, idx_ops,
     elif cmd == "VCREATE":
         # VCREATE name metric precision config_json
         cfg = json.loads(dec(4)) if len(parts) > 4 and parts[4] else {}
-        idx_ops.setdefault(dec(1), {})["create"] = dict(
+        idx_ops.setdefault(dec(1), _IndexOps()).create = dict(
             metric=dec(2), precision=dec(3), **cfg)
     elif cmd == "VDROP":
-        idx_ops.setdefault(dec(1), {})["dropped"] = True
+        idx_ops[dec(1)] = _IndexOps(dropped=True)
     elif cmd == "VADD":
         # VADD index id vec_bytes meta_json
         meta = json.loads(dec(4)) if len(parts) > 4 and parts[4] else None
-        idx_ops.setdefault(dec(1), {}).setdefault(
-            "entries", {})[dec(2)] = (parts[3], meta)
+        ops = idx_ops.setdefault(dec(1), _IndexOps())
+        ops.adds[dec(2)] = (parts[3], meta)
+        ops.live[dec(2)] = True
     elif cmd == "VDEL":
-        idx_ops.setdefault(dec(1), {}).setdefault(
-            "entries", {})[dec(2)] = None
+        # VDEL index id [time]; the JAX package journals no time, and its
+        # node drop takes the replay's
+        name, e = dec(1), dec(2)
+        ts = float(dec(3)) if len(parts) > 3 else time.time()
+        ops = idx_ops.setdefault(name, _IndexOps())
+        alive = ops.live.get(e)
+        if alive is None:
+            alive = not ops.dropped and had_row(name, e)
+        if alive:
+            order.append(("VDEL", f"{name}/{e}", ts))
+        ops.live[e] = False
+        ops.adds.pop(e, None)
+        ops.patches.pop(e, None)
+        ops.removed.add(e)
     elif cmd == "VMETA":
-        ops = idx_ops.setdefault(dec(1), {})
-        cur = ops.setdefault("entries", {}).get(dec(2))
-        patch = json.loads(dec(3))
+        ops = idx_ops.setdefault(dec(1), _IndexOps())
+        e, patch = dec(2), json.loads(dec(3))
+        cur = ops.adds.get(e)
         if cur is not None:
             merged = dict(cur[1] or {})
             merged.update(patch)
-            ops["entries"][dec(2)] = (cur[0], merged)
+            ops.adds[e] = (cur[0], merged)
         else:
-            ops.setdefault("meta_patches", []).append((dec(2), patch))
+            ops.patches.setdefault(e, []).append(patch)
     elif cmd == "VCONFIG":
         # merged, not replaced: a later VCONFIG of other keys must not
         # undo an earlier one (each key's last value wins, as when they
         # were applied one by one)
-        idx_ops.setdefault(dec(1), {}).setdefault("config", {}).update(
+        idx_ops.setdefault(dec(1), _IndexOps()).config.update(
             json.loads(dec(2)))
     elif cmd == "GLINK":
         order.append(("GLINK", dec(1), dec(2), dec(3), float(dec(4)),

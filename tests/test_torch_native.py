@@ -247,7 +247,12 @@ def test_replay_past_scan_capacity_matches_reference(tmp_path, monkeypatch):
     e._aof.close()
     path = tmp_path / "journal.aof"
     buf = bytearray(path.read_bytes())
-    mid = len(buf) // 2
+    # the zeroed stretch starts in the KV frame nearest the middle, so
+    # that a KV pair is lost whatever the other frames' lengths
+    fr = hn.scan_frames(bytes(buf))
+    mid = min((int(o) for o, n in zip(fr.offsets, fr.lengths)
+               if b"SET" in buf[o:o + n]),
+              key=lambda o: abs(o - len(buf) // 2))
     buf[mid:mid + 6] = b"\x00" * 6
     path.write_bytes(bytes(buf))
     monkeypatch.setattr(hn, "SCAN_CAP", 2)
@@ -445,6 +450,27 @@ def test_topk_entry_keeps_the_lower_row_on_ties():
     hn.load().kn_topk(dists.ctypes.data, 7, 9, idx.ctypes.data,
                       dst.ctypes.data)
     assert idx.tolist()[7:] == [-1, -1] and np.isinf(dst[7:]).all()
+
+
+def test_topk_entry_at_k0_writes_nothing():
+    """k = 0 reads no heap top (the reference's loop compares against the
+    top of an empty heap) and writes no slot."""
+    dists = np.array([3, 1, 2], np.float32)
+    idx = np.full(2, 77, np.int32)
+    dst = np.full(2, 7.5, np.float32)
+    hn.load().kn_topk(dists.ctypes.data, 3, 0, idx.ctypes.data,
+                      dst.ctypes.data)
+    assert idx.tolist() == [77, 77] and dst.tolist() == [7.5, 7.5]
+
+
+@pytest.mark.parametrize("metric", [hn.L2, hn.COSINE])
+def test_bruteforce_topk_at_k0(metric):
+    q, rows = _rows(metric=metric)
+    d, i = hn.bruteforce_topk(q, rows, 0, metric)
+    pd, pi = hn.bruteforce_topk_plain(q, rows, 0, metric)
+    assert d.shape == i.shape == pd.shape == pi.shape == (len(q), 0)
+    assert (d.dtype, i.dtype) == (pd.dtype, pi.dtype) == (np.float32,
+                                                           np.int32)
 
 
 def test_every_entry_is_typed():
