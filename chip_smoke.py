@@ -221,14 +221,40 @@ Phases, one line each; any failure exits non-zero:
             shards, 280,000 rows): ReplicatedServing.search QPS, the ids
             of the single-process sharded search, verify_replicas equal;
             every child with a timeout
+ 21 serve   the port as `serve` deploys it, the background thread on:
+            (a) phase 15's index (1,000,000 + 50,900 rows, its data dir
+            copied after its close) opened with snapshot_interval 5 and
+            maintenance_interval 1; 3 readers (Engine.search B=4096, B=1,
+            B=1024 filtered) until 2 writers end, each 8 add_batch of
+            1,024 SIFT-like rows (seed 1242), 2,000 adds, 2,000 deletes and
+            200 metadata patches, each acknowledgement timed: no thread
+            raises, no ERROR on the kektordb logger, at least one snapshot
+            by the background thread, every hit a known id with a finite
+            score and not deleted before its search began; after
+            run_maintenance scan recall@10 >= 0.99 and beam >= 0.95
+            against the exact oracle over the live rows; close() and a
+            reopen: every acknowledged add back and bit-equal, every
+            acknowledged delete gone; (b) phase 11's engine: 2 threads of
+            decayed B=1024 searches beside a third reinforcing 64 hits a
+            round, 20 rounds at a fixed clock, each search held to the
+            host path; phase 17's default host index: 8 B=4096 batches in
+            2 threads at once, ids equal to a serial run's; (c) a child
+            process of the port alone on the card (its background thread
+            on) ingests add_batch of 4,096 (seed 1243) and single adds,
+            each fsynced and acknowledged, and is SIGKILLed after 32
+            batches and 200 single adds while it writes (it prints its
+            device and launch counts); reopened on the
+            card: every acknowledged id back, bit-equal, its own nearest
+            row; the beam serves and leaves no backlog
 Kernel times are the card's own: the timed calls queue behind a sleep
 kernel so the host is ahead (kektordb_tpu_torch.probes.timed), and the
 host's issue time per call is printed beside each. Each path of phases
-7 to 20 (the build, the scan search, the beam, vacuum, import, the two
+7 to 21 (the build, the scan search, the beam, vacuum, import, the two
 probes, the hybrid and decayed searches, the bf16 build and beam, the
 exact and int8 searches, the journaled adds, their replay, the beams on
 reopened indexes, the compressed and projected reads, the host sweeps, the
-HTTP reads, the sharded reads and build) runs with every launch
+HTTP reads, the sharded reads and build, the serving storm and the
+threaded reads) runs with every launch
 count set to 0 just
 before it; its counts (pass A's also by form) are read and printed just
 after, and a kernel (or pass-A form) the path runs must have launched.
@@ -243,6 +269,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -367,8 +394,24 @@ SHARDS, SHARD_GRAPH_N, SHARD_BEAM_SLACK = 4, 4 * 25_000, 0.01
 SHARD_ENGINE_N, SHARD_ENGINE_SEED = 20_000, 1251
 REPLICAS, REPLICA_SHARDS, REPLICA_N = 2, 2, 280_000
 REPLICA_SEARCHES, CHILD_TIMEOUT_S = 4, 300
-# phase 12: rows of the bf16 default index
-BF16_N, BF16_SEED = 500_000, 1237
+# phase 21: the server as deployed. (a) the storm on phase 15's index: each
+# writer's rounds (one add_batch of SERVE_BATCH rows, then its share of the
+# single adds, deletes and metadata patches), the readers' (B, filter), the
+# background thread's intervals; (b) the decay rounds, the host batches a
+# thread; (c) the SIGKILLed child's add_batch rows and batches (32 x 4,096
+# rows = 2^17: its arena reaches pass A's route, PALLAS_MIN_ROWS), the
+# single adds before the kill, and the vectors it holds for them
+SERVE_SEED, SERVE_WRITERS, SERVE_ROUNDS, SERVE_BATCH = 1242, 2, 8, 1024
+SERVE_SINGLES, SERVE_DELETES, SERVE_PATCHES = 2000, 2000, 200
+SERVE_READS = ((BATCH, None), (1, None), (RECALL_QUERIES, "grp = 1"))
+SERVE_SNAPSHOT_S, SERVE_MAINTENANCE_S = 5, 1
+DECAY_THREAD_ROUNDS, HOST_THREAD_BATCHES = 20, 8
+KILL_SEED, KILL_BATCH, KILL_BATCHES, KILL_SINGLES = 1243, 4096, 32, 200
+KILL_POOL = 20_000
+# phase 12: rows of the bf16 default index (cut from 500,000 to 2^18, still
+# past pass A's route at 2^17, to leave the script's time limit room for
+# phase 21)
+BF16_N, BF16_SEED = 1 << 18, 1237
 LAYOUT_SAME_MIN = 0.99
 FUSE_TOL = 1e-5
 RERANK_C = 32        # the scan re-rank's candidates (kf) at k = 2 * K
@@ -1553,7 +1596,9 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
     reopened again, each reopen held to the writer (`persist_checks`).
     Then compress_serving("int8") on that index: recall@K against the f32
     oracle, a checkpoint and a reopen with the same reads. All under a
-    temporary directory of build/, removed at the end."""
+    temporary directory of build/, removed at the end; a copy of the data
+    dir as the first close() left it, and phase 7's queries, are phase
+    21's ("serve_dir", "serve_queries")."""
     import gc as pygc
     import os
     import shutil
@@ -1564,7 +1609,8 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
     from kektordb_tpu_torch.ops import distance as dist
     from kektordb_tpu_torch.ops import scan
     from kektordb_tpu_torch.persist import aof, checkpoint, index_io
-    X, Q = graph.pop("base"), graph.pop("queries")[:PERSIST_B]
+    X, queries = graph.pop("base"), graph.pop("queries")
+    Q = queries[:PERSIST_B]
     eng0 = graph.pop("eng")
     os.makedirs("build", exist_ok=True)
     root = tempfile.mkdtemp(prefix="persist_", dir="build")
@@ -1769,6 +1815,12 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
         close_s = time.perf_counter() - t0
         drop(e2)
         disk = du(root)
+        # phase 21 opens this checkpoint as the server does
+        t0 = time.perf_counter()
+        serve_dir = tempfile.mkdtemp(prefix="serve_", dir="build")
+        shutil.copytree(root, serve_dir, dirs_exist_ok=True)
+        print(f"phase persist: the closed data dir copied for phase 21 in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
         e3, open3_s, load3_s = open_engine("checkpoint")
         print(f"phase persist: close() (checkpoint of "
               f"{GRAPH_N + PERSIST_ADDS - PERSIST_LINKS + SECOND_N} rows) "
@@ -1831,7 +1883,8 @@ def persist_phase(torch, graph: dict, card: str) -> dict:
             "add_launches": add_counts["gather_dist"],
             "beam_launches": c2["beam_launches"] + c3["beam_launches"],
             "int8_recall": rec,
-            "int8_launches": qcounts["scan_pass_a"]}
+            "int8_launches": qcounts["scan_pass_a"], "serve_dir": serve_dir,
+            "serve_queries": queries}
 
 
 def host_topk_check(torch, main: dict, card: str) -> dict:
@@ -2228,7 +2281,7 @@ def profiled(torch, label: str, fn, card: str, idx, Q) -> None:
 
 
 def decay_phase(torch, eng, Q, card: str) -> None:
-    """Phase 11 on phase 10's engine."""
+    """Phase 11 on phase 10's engine, which stays open for phase 21."""
     from kektordb_tpu_torch.ops import fuse
     eng.configure_index("rag", {"memory": {
         "enabled": True, "decay_half_life": DAY,
@@ -2272,7 +2325,6 @@ def decay_phase(torch, eng, Q, card: str) -> None:
           flush=True)
     profiled(torch, "decay", lambda: eng.search("rag", Q, k=K), card,
              eng.indexes["rag"].index, Q)
-    eng.close()
 
 
 GATHER_RANGE = "kektor::gather_dist"
@@ -3023,8 +3075,8 @@ def host_phase(torch, main: dict, proj: dict, card: str) -> dict:
         del er, hr
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    ea.close()
-    del ea, ha
+    out["engine"] = ea                  # phase 21 reads it from threads
+    del ha
     pygc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4052,6 +4104,700 @@ def shard_phase(torch, main: dict, exact: dict, card: str) -> dict:
     return {"scan": a, "more": b, "engine": c, "replicas": d}
 
 
+class ErrorRecords(logging.Handler):
+    """The ERROR records of the `kektordb` logger (the background loop's
+    `log.exception`, which keeps the loop alive) while a `with` block
+    runs."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records: list = []
+
+    def emit(self, record) -> None:
+        self.records.append(record)
+
+    def __enter__(self) -> "ErrorRecords":
+        logging.getLogger("kektordb").addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        logging.getLogger("kektordb").removeHandler(self)
+
+    def check(self, label: str) -> None:
+        if self.records:
+            raise AssertionError(f"{label}: the kektordb logger recorded "
+                                 f"{len(self.records)} ERROR(s), the first: "
+                                 f"{self.format(self.records[0])}")
+
+
+def in_threads(fns) -> list:
+    """Runs each callable in a thread of its own and joins them all; the
+    exceptions they raised."""
+    import threading
+    errors: list = []
+
+    def guard(fn):
+        try:
+            fn()
+        except Exception as ex:   # noqa: BLE001
+            errors.append(ex)
+    ts = [threading.Thread(target=guard, args=(fn,)) for fn in fns]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return errors
+
+
+class ServeStorm:
+    """Phase 21(a)'s threads over one Engine: SERVE_WRITERS writers of a
+    fixed count of operations each, readers that run until the writers end.
+    Every acknowledgement is recorded with its time.monotonic(); every
+    reader checks each hit (a known id, a finite score, not an id whose
+    delete was acknowledged before the search began)."""
+
+    def __init__(self, eng, X: np.ndarray, Q: np.ndarray):
+        import threading
+        self.eng, self.Q = eng, Q
+        idx = eng.indexes["graph"].index
+        self.known = set(idx.ids.ext_to_row)
+        per = SERVE_ROUNDS * SERVE_BATCH + SERVE_SINGLES
+        self.plan = []
+        for w in range(SERVE_WRITERS):
+            Xw = X[w * per:(w + 1) * per]
+            dels = [f"g{500 * i + 1 + w}" for i in range(SERVE_DELETES)]
+            patches = [f"p{w * SERVE_PATCHES + i}"
+                       for i in range(SERVE_PATCHES)]
+            if any(e not in self.known for e in dels + patches):
+                raise AssertionError("phase 21: a row to delete or patch is "
+                                     "not in phase 15's index")
+            batch_ids = [f"s{w}_{i}" for i in range(SERVE_ROUNDS
+                                                    * SERVE_BATCH)]
+            single_ids = [f"t{w}_{i}" for i in range(SERVE_SINGLES)]
+            self.known.update(batch_ids + single_ids)
+            self.plan.append((Xw, batch_ids, single_ids, dels, patches))
+        self.added: dict = {}          # id -> (vector, ack time)
+        self.deleted_at: dict = {}
+        self.patched: list = []
+        self.ops = [0] * SERVE_WRITERS
+        self.reads = [0] * len(SERVE_READS)
+        self.waits = [0.0] * len(SERVE_READS)
+        self.stop = threading.Event()
+
+    def writer(self, w: int) -> None:
+        eng = self.eng
+        Xw, batch_ids, single_ids, dels, patches = self.plan[w]
+        nb = SERVE_ROUNDS * SERVE_BATCH
+        per_round = [n // SERVE_ROUNDS for n in (SERVE_SINGLES, SERVE_DELETES,
+                                                 SERVE_PATCHES)]
+        for r in range(SERVE_ROUNDS):
+            sl = slice(r * SERVE_BATCH, (r + 1) * SERVE_BATCH)
+            eng.add_batch("graph", batch_ids[sl], Xw[sl])
+            t = time.monotonic()
+            for e, x in zip(batch_ids[sl], Xw[sl]):
+                self.added[e] = (x, t)
+            self.ops[w] += 1
+            a, d, p = (slice(r * n, (r + 1) * n) for n in per_round)
+            for e, x in zip(single_ids[a], Xw[nb:][a]):
+                eng.add("graph", e, x, {"grp": 1})
+                self.added[e] = (x, time.monotonic())
+                self.ops[w] += 1
+            for e in dels[d]:
+                if not eng.delete("graph", e):
+                    raise AssertionError(f"phase 21: delete of {e} found no "
+                                         "row")
+                self.deleted_at[e] = time.monotonic()
+                self.ops[w] += 1
+            for e in patches[p]:
+                eng.update_metadata("graph", e, {"grp": 1})
+                self.patched.append(e)
+                self.ops[w] += 1
+
+    def reader(self, r: int) -> None:
+        B, filt = SERVE_READS[r]
+        rng = np.random.default_rng(SERVE_SEED + r)
+        while not self.stop.is_set():
+            q = self.Q[rng.integers(0, len(self.Q) - B + 1):][:B]
+            t0 = time.monotonic()
+            res = self.eng.search("graph", q, k=K, filter=filt)
+            self.waits[r] = max(self.waits[r], time.monotonic() - t0)
+            if len(res) != B:
+                raise AssertionError(f"phase 21: {len(res)} results for "
+                                     f"{B} queries")
+            for hits in res:
+                for h in hits:
+                    if h["id"] not in self.known \
+                            or not np.isfinite(h["score"]):
+                        raise AssertionError(f"phase 21: hit {h}")
+                    gone = self.deleted_at.get(h["id"])
+                    if gone is not None and gone < t0:
+                        raise AssertionError(
+                            f"phase 21: {h['id']} was deleted "
+                            f"{t0 - gone:.3f} s before the search began")
+            self.reads[r] += 1
+
+    def run(self, snaps: list) -> list:
+        """Writers and readers at once; once the writers end, waits (up to
+        30 s) for the background thread's first snapshot, then stops the
+        readers. The threads' exceptions."""
+        import threading
+        errors: list = []
+
+        def guard(fn, *a):
+            try:
+                fn(*a)
+            except Exception as ex:   # noqa: BLE001
+                errors.append(ex)
+                self.stop.set()
+        writers = [threading.Thread(target=guard, args=(self.writer, w))
+                   for w in range(SERVE_WRITERS)]
+        readers = [threading.Thread(target=guard, args=(self.reader, r))
+                   for r in range(len(SERVE_READS))]
+        for t in writers + readers:
+            t.start()
+        for t in writers:
+            t.join()
+        t0 = time.monotonic()
+        while not snaps and time.monotonic() - t0 < 30 and not errors:
+            time.sleep(0.1)
+        self.stop.set()
+        for t in readers:
+            t.join()
+        return errors
+
+
+def serve_storm(torch, src: str, Q: np.ndarray, card: str) -> dict:
+    """Phase 21(a): phase 15's index (its data dir, copied after its close)
+    opened as `serve` opens it, with the background thread (snapshots every
+    SERVE_SNAPSHOT_S or 1,000 writes, maintenance every
+    SERVE_MAINTENANCE_S); the storm (`ServeStorm`, phase 7's queries `Q`)
+    with every launch count zeroed; then run_maintenance drains the link
+    backlog, scan recall@K >= RECALL_MIN and beam recall@K >=
+    BEAM_RECALL_MIN against the exact oracle over the live rows (both also
+    printed for the index as opened); close() and a reopen: every
+    acknowledged add back (`get`) and bit-equal, every acknowledged
+    delete gone, every patch in place."""
+    import gc as pygc
+    import shutil
+    import threading
+
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    from kektordb_tpu_torch.ops import distance as dist
+    eng = Engine(EngineConfig(device=DEV, data_dir=src,
+                              start_background=True,
+                              snapshot_interval=SERVE_SNAPSHOT_S,
+                              maintenance_interval=SERVE_MAINTENANCE_S))
+    snaps, maint = [], []
+    for name, out in (("save_snapshot", snaps), ("run_maintenance", maint)):
+        def timed(fn=getattr(eng, name), out=out):
+            t = time.perf_counter()
+            res = fn()
+            if threading.current_thread() is eng._bg:
+                out.append(time.perf_counter() - t)
+            return res
+        setattr(eng, name, timed)   # the loop calls the instance's method
+    per = SERVE_ROUNDS * SERVE_BATCH + SERVE_SINGLES
+    X = make_sift_like(SERVE_WRITERS * per, DIM, seed=SERVE_SEED)
+    Qr = Q[:RECALL_QUERIES]
+
+    def recalls(idx) -> tuple[float, float]:
+        """Scan (Engine.search) and beam recall@K against the exact
+        oracle over the index's live rows."""
+        cap = idx.state.vectors.shape[0]
+        gt = dist.brute_force_topk(
+            torch.from_numpy(Qr).to(DEV), idx.state.vectors, K,
+            valid=torch.from_numpy(idx.ids.live_mask(cap)).to(DEV)
+        )[1].cpu().numpy()
+        ext = idx.ids.exts_array()
+        want = [set(ext[g].tolist()) for g in gt]
+        got = eng.search("graph", Qr, k=K)
+        scan = float(np.mean([len({h["id"] for h in hits} & w) / K
+                              for hits, w in zip(got, want)]))
+        brows = np.asarray(idx.search(Qr, K, mode="beam")[1])
+        beam = float(np.mean([len(set(ext[r[r >= 0]].tolist()) & w) / K
+                              for r, w in zip(brows, want)]))
+        return scan, beam
+    try:
+        with ErrorRecords() as errs:
+            t0 = time.perf_counter()
+            eng.open()
+            open_s = time.perf_counter() - t0
+            idx = eng.indexes["graph"].index
+            n0 = len(idx)
+            before = recalls(idx)
+            storm = ServeStorm(eng, X, Q)
+            errors, storm_s, counts = counted(
+                torch, "phase 21 storm: readers, writers and the background "
+                "thread", lambda: storm.run(snaps),
+                ("scan_pass_a", "gather_dist"))
+            if errors:
+                raise AssertionError(f"phase 21: a storm thread raised: "
+                                     f"{errors[0]!r}") from errors[0]
+            if not snaps:
+                raise AssertionError("phase 21: the background thread took "
+                                     "no snapshot")
+            backlog = len(idx._unlinked)
+            t0 = time.perf_counter()
+            eng.run_maintenance()
+            drain_s = time.perf_counter() - t0
+            if idx._unlinked:
+                raise AssertionError("phase 21: run_maintenance left a link "
+                                     "backlog")
+            scan_rec, beam_rec = recalls(idx)
+            t0 = time.perf_counter()
+            eng.close()
+            close_s = time.perf_counter() - t0
+        errs.check("phase 21 storm")
+        n1 = len(idx)
+        del idx
+        eng.indexes.clear()
+        pygc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase serve: phase 15's {n0}-row index opened with the "
+              f"background thread (snapshots every {SERVE_SNAPSHOT_S} s or "
+              f"1,000 writes, maintenance every {SERVE_MAINTENANCE_S} s) in "
+              f"{open_s:.3f} s; storm {storm_s:.3f} s: writers "
+              f"{storm.ops} ops (each {SERVE_ROUNDS} add_batch of "
+              f"{SERVE_BATCH}, {SERVE_SINGLES} adds, {SERVE_DELETES} "
+              f"deletes, {SERVE_PATCHES} patches), readers "
+              + ", ".join(f"B={b}{' ' + f if f else ''}: {n} searches, "
+                          f"longest {w:.3f} s"
+                          for (b, f), n, w in zip(SERVE_READS, storm.reads,
+                                                  storm.waits))
+              + f"; background snapshots {len(snaps)} ("
+              + ", ".join(f"{x:.3f}" for x in snaps)
+              + f" s), maintenance ticks {len(maint)} (longest "
+              f"{max(maint, default=np.nan):.3f} s); no ERROR logged; "
+              f"backlog {backlog} rows drained in {drain_s:.3f} s; "
+              f"{n1} rows: scan recall@{K} {scan_rec:.4f}, beam "
+              f"{beam_rec:.4f} (exact oracle over the live rows; as "
+              f"opened, {n0} rows: {before[0]:.4f}, {before[1]:.4f}); close() "
+              f"{close_s:.3f} s [{card}]", flush=True)
+        if scan_rec < RECALL_MIN or beam_rec < BEAM_RECALL_MIN:
+            raise AssertionError(f"phase 21: recall scan {scan_rec}, beam "
+                                 f"{beam_rec}")
+        if storm.reads.count(0):
+            print(f"phase serve: a reader never got in: {storm.reads} "
+                  f"(the writer-preferring lock)", flush=True)
+
+        t0 = time.perf_counter()
+        e2 = Engine(EngineConfig(device=DEV, data_dir=src,
+                                 start_background=False)).open()
+        reopen_s = time.perf_counter() - t0
+        idx2 = e2.indexes["graph"].index
+        ids = sorted(storm.added)
+        for e in ids:
+            e2.get("graph", e)      # KeyError: an acknowledged add is gone
+        rows = torch.tensor([idx2.ids.get(e) for e in ids], device=DEV)
+        if not torch.equal(idx2.state.vectors[rows.long()], torch.from_numpy(
+                np.stack([storm.added[e][0] for e in ids])).to(DEV)):
+            raise AssertionError("phase 21: an acknowledged add did not "
+                                 "read back bit-equal")
+        back = [e for e in storm.deleted_at if idx2.ids.get(e) is not None]
+        if back:
+            raise AssertionError(f"phase 21: {len(back)} deleted ids back")
+        if any(e2.get("graph", e)["metadata"].get("grp") != 1
+               for e in storm.patched):
+            raise AssertionError("phase 21: a metadata patch was lost")
+        print(f"phase serve: reopened on the card in {reopen_s:.3f} s: "
+              f"{len(ids)} acknowledged adds back and bit-equal, "
+              f"{len(storm.deleted_at)} acknowledged deletes gone, "
+              f"{len(storm.patched)} patches in place [{card}]", flush=True)
+        e2._aof.close()
+        e2.indexes.clear()
+        del idx2, e2
+    finally:
+        eng._stop.set()     # close() did this unless the storm failed
+        if eng._bg is not None:
+            eng._bg.join(timeout=60)
+        shutil.rmtree(src, ignore_errors=True)
+        pygc.collect()
+        torch.cuda.empty_cache()
+    return {"storm_s": storm_s, "ops": storm.ops, "reads": storm.reads,
+            "waits": storm.waits, "snapshots_s": snaps, "maint_s": maint,
+            "counts": counts, "scan_recall": scan_rec,
+            "beam_recall": beam_rec, "before": before, "open_s": open_s,
+            "close_s": close_s,
+            "reopen_s": reopen_s}
+
+
+def decayed_as_host(eng, Q, res, now: float, label: str) -> int:
+    """One decayed Engine.search result against the host path
+    (`_assemble_fused` at `now`) on the index's scan output for the same
+    queries, taken under the read lock: scores within FUSE_TOL, ids equal
+    wherever the host's adjacent scores differ by more (its K + 1 hits
+    show a tie across the K-th place). Returns the hits held."""
+    h = eng.indexes["rag"]
+    idx = h.index
+    with eng._lock.read():
+        d_dev, rows_dev, _ = idx.search_device(Q, 2 * K)
+        host = eng._assemble_fused(
+            h, idx, d_dev.cpu().numpy(),
+            rows_dev.cpu().numpy().astype(np.int64), Q.shape[0], K + 1,
+            text_rows=np.empty(0, np.int64),
+            text_vals=np.empty(0, np.float64), alpha=0.5, decay=True,
+            include_metadata=False, columnar=True, now=now)
+    for b in range(Q.shape[0]):
+        ds = np.array([x["score"] for x in res[b]])
+        hs = np.array(host["scores"][b])
+        if ds.shape[0] != K or not np.all(np.abs(ds - hs[:K]) <= FUSE_TOL):
+            raise AssertionError(f"{label}: query {b} decayed scores {ds} "
+                                 f"against the host's {hs}")
+        gap = np.abs(np.diff(hs))
+        sep = (np.minimum(np.r_[np.inf, gap], np.r_[gap, np.inf])
+               > FUSE_TOL)[:K]
+        di = np.array([x["id"] for x in res[b]])
+        hi = np.array(host["ids"][b])[:K]
+        if np.any(di[sep] != hi[sep]):
+            raise AssertionError(f"{label}: query {b} ids {di} against the "
+                                 f"host's {hi}")
+    return Q.shape[0] * K
+
+
+def serve_decay(torch, eng, Q, card: str) -> dict:
+    """Phase 21(b), decay: on phase 11's memory-enabled engine, two
+    threads run decayed B=HYBRID_B searches while a third reinforces
+    REINFORCED of their top hits, DECAY_THREAD_ROUNDS rounds, at one fixed
+    clock reading (time.time patched). A round: the reinforcer's writes
+    and one search in each thread at once (held to the host path when no
+    reinforce fell inside it), then one search in each thread with the
+    writer idle, held to the host path (`decayed_as_host`)."""
+    import threading
+    from unittest import mock
+
+    from kektordb_tpu_torch.ops import fuse
+    now = time.time()
+    cols = eng.indexes["rag"].meta.decay
+    qs = (Q, np.roll(Q, HYBRID_B // 2, axis=0))
+    tops = [eng.search("rag", q, k=K) for q in qs]
+    start, done = (threading.Barrier(3, timeout=120) for _ in range(2))
+    held, searches = [0, 0], [0, 0]
+
+    def breaking(fn):
+        def run(*a):
+            try:
+                fn(*a)
+            except BaseException:
+                start.abort()        # the other threads leave their wait
+                done.abort()
+                raise
+        return run
+
+    @breaking
+    def searcher(t):
+        for r in range(DECAY_THREAD_ROUNDS):
+            start.wait()
+            v0 = cols.version
+            res = eng.search("rag", qs[t], k=K)
+            clean = cols.version == v0
+            done.wait()
+            if clean and cols.version == v0:
+                held[t] += decayed_as_host(eng, qs[t], res, now,
+                                           f"phase 21 decay, round {r}")
+            tops[t] = eng.search("rag", qs[t], k=K)
+            held[t] += decayed_as_host(eng, qs[t], tops[t], now,
+                                       f"phase 21 decay, round {r}, idle")
+            searches[t] += 2
+
+    @breaking
+    def reinforcer():
+        for r in range(DECAY_THREAD_ROUNDS):
+            start.wait()
+            for hits in tops[r % 2][:REINFORCED]:
+                eng.reinforce("rag", hits[0]["id"])
+            done.wait()
+
+    fuse.build_decay_device.calls = fuse.update_decay_device.calls = 0
+    t0 = time.perf_counter()
+    with ErrorRecords() as errs, mock.patch("time.time", lambda: now):
+        errors, sec, counts = counted(
+            torch, "phase 21 decayed searches in 2 threads, reinforce in a "
+            "third", lambda: in_threads([lambda: searcher(0),
+                                         lambda: searcher(1), reinforcer]),
+            ("scan_pass_a", "gather_dist"))
+    errs.check("phase 21 decay")
+    if errors:
+        raise AssertionError(f"phase 21 decay: a thread raised: "
+                             f"{errors[0]!r}") from errors[0]
+    print(f"phase serve: decay, {DECAY_THREAD_ROUNDS} rounds of "
+          f"{REINFORCED} reinforces beside 2 threads of decayed B={HYBRID_B} "
+          f"searches: {sum(searches)} searches in {sec:.3f} s, "
+          f"{sum(held)} hits held to the host path (scores within "
+          f"{FUSE_TOL}); mirror builds {fuse.build_decay_device.calls}, "
+          f"in-place refreshes {fuse.update_decay_device.calls} [{card}]",
+          flush=True)
+    eng.close()
+    return {"searches": sum(searches), "held": sum(held), "s": sec,
+            "counts": counts, "builds": fuse.build_decay_device.calls,
+            "refreshes": fuse.update_decay_device.calls,
+            "wall_s": time.perf_counter() - t0}
+
+
+def serve_host(torch, eng, queries, card: str) -> dict:
+    """Phase 21(b), host arena: phase 17's default host index; the same
+    HOST_THREAD_BATCHES batches of BATCH queries run serially, then in two
+    threads at once (the second in reverse order): every batch's ids equal
+    the serial run's."""
+    batches = [queries[i * BATCH:(i + 1) * BATCH]
+               for i in range(HOST_THREAD_BATCHES)]
+
+    def ids_of(q):
+        return [[x["id"] for x in hits] for hits in eng.search("host", q,
+                                                               k=K)]
+    t0 = time.perf_counter()
+    serial = [ids_of(q) for q in batches]
+    serial_s = time.perf_counter() - t0
+    got = [[None] * len(batches) for _ in range(2)]
+
+    def run(t):
+        order = range(len(batches)) if t == 0 else \
+            reversed(range(len(batches)))
+        for i in order:
+            got[t][i] = ids_of(batches[i])
+    # the default host index's projected sweep: pass A over the int8
+    # mirror, the exact re-rank on the host
+    errors, sec, counts = counted(
+        torch, "phase 21 host sweeps in 2 threads",
+        lambda: in_threads([lambda: run(0), lambda: run(1)]),
+        ("scan_pass_a",))
+    if errors:
+        raise AssertionError(f"phase 21 host: a thread raised: "
+                             f"{errors[0]!r}") from errors[0]
+    bad = [(t, i) for t in range(2) for i in range(len(batches))
+           if got[t][i] != serial[i]]
+    print(f"phase serve: host arena, {HOST_THREAD_BATCHES} batches of "
+          f"B={BATCH}: serial {serial_s:.3f} s, two threads at once "
+          f"{sec:.3f} s ({2 * len(batches) * BATCH / sec:.1f} QPS), "
+          f"{len(bad)} batches whose ids differ from the serial run's "
+          f"[{card}]", flush=True)
+    if bad:
+        raise AssertionError(f"phase 21 host: batches {bad} differ from the "
+                             "serial run")
+    eng.close()
+    return {"serial_s": serial_s, "threads_s": sec, "counts": counts}
+
+
+_KILL_CHILD = '''
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+from kektordb_tpu_torch.engine import Engine, EngineConfig
+from kektordb_tpu_torch.ops import distance as dist
+from kektordb_tpu_torch.ops import scan
+DEV = "cuda"
+data, rows, batch, batches = sys.argv[1], sys.argv[2], int(sys.argv[3]), \\
+    int(sys.argv[4])
+# the kernel library's first use, from two threads at once (native.load
+# builds or loads it under its lock), each call held to the plain version
+g = torch.Generator().manual_seed(0)
+V, Q = (torch.rand(n, 128, generator=g).to(DEV) for n in (8192, 64))
+ids = torch.randint(0, 8192, (64, 32), generator=g).to(DEV)
+got = [None, None]
+ts = [threading.Thread(target=lambda t=t: got.__setitem__(
+    t, dist.gathered(V, ids, Q, dist.L2))) for t in range(2)]
+[t.start() for t in ts]
+[t.join() for t in ts]
+tol = 1e-5 * (Q.norm(dim=1)[:, None] + V[ids].norm(dim=2)) ** 2
+worst = max(float(((x - dist.gathered_plain(V, ids, Q, dist.L2)).abs()
+                   / tol).max()) for x in got)
+print(f"FIRST {dist.gathered.launches} {worst:.4g}", flush=True)
+X = np.load(rows)
+e = Engine(EngineConfig(device=DEV, data_dir=data)).open()
+e.create_index("kill")
+print(f"DEVICE {e.device} {torch.cuda.get_device_name(e.device)} "
+      f"background {e._bg is not None and e._bg.is_alive()}", flush=True)
+n = 0
+for b in range(batches):
+    e.add_batch("kill", [f"k{i}" for i in range(n, n + batch)],
+                X[n:n + batch])
+    n += batch
+    e._aof.flush(fsync=True)
+    print(f"ACK {n - 1} batch", flush=True)
+    top = e.search("kill", X[n - 1], k=1)[0][0]["id"]
+    print(f"LAUNCHES pass_a {scan.pass_a.launches} gather_dist "
+          f"{dist.gathered.launches} top {top}", flush=True)
+while n < len(X):
+    e.add("kill", f"k{n}", X[n])
+    e._aof.flush(fsync=True)
+    print(f"ACK {n}", flush=True)
+    n += 1
+print("DONE", flush=True)
+time.sleep(600)
+'''
+
+
+def serve_kill(torch, card: str) -> dict:
+    """Phase 21(c): a child process (the port alone) makes its first
+    kernel calls from two threads at once (gather-distance, held to the
+    plain version), opens Engine(device="cuda", data_dir) with the
+    background thread, ingests
+    KILL_BATCHES add_batch of KILL_BATCH SIFT-like rows into a default
+    index (each fsynced, then acknowledged, then searched), then single
+    adds, each fsynced and acknowledged; SIGKILLed once it acknowledged
+    KILL_SINGLES of them, while it writes. Reopened on the card: every
+    acknowledged id back, bit-equal, its own nearest row at distance 0
+    through Engine.search; the beam drains the link backlog."""
+    import os
+    import queue
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from kektordb_tpu_torch.engine import Engine, EngineConfig
+    root = tempfile.mkdtemp(prefix="kill_", dir="build")
+    X = make_sift_like(KILL_BATCHES * KILL_BATCH + KILL_POOL, DIM,
+                       seed=KILL_SEED)
+    proc = None
+    try:
+        np.save(os.path.join(root, "rows.npy"), X)
+        child = os.path.join(root, "writer.py")
+        with open(child, "w") as f:
+            f.write(_KILL_CHILD)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, child, os.path.join(root, "data"),
+             os.path.join(root, "rows.npy"), str(KILL_BATCH),
+             str(KILL_BATCHES)], env=cli_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln) for ln in
+                                         proc.stdout] + [lines.put(None)],
+                         daemon=True).start()
+        log, acked, batches, singles = [], -1, 0, 0
+        device = launches = first = None
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while batches < KILL_BATCHES or singles < KILL_SINGLES:
+            try:
+                ln = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError("phase 21 kill: the child timed out:\n"
+                                     + "".join(log[-20:]))
+            if ln is None or ln.startswith("DONE"):
+                raise AssertionError("phase 21 kill: the child stopped "
+                                     "writing before the kill:\n"
+                                     + "".join(log[-20:]))
+            log.append(ln)
+            if ln.startswith("FIRST"):
+                first = ln.split()[1:]
+            elif ln.startswith("DEVICE"):
+                device = ln.split(None, 1)[1].strip()
+            elif ln.startswith("LAUNCHES"):
+                launches = ln.split(None, 1)[1].strip()
+            elif ln.startswith("ACK"):
+                acked = int(ln.split()[1])
+                if ln.strip().endswith("batch"):
+                    batches += 1
+                else:
+                    singles += 1
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        child_s = time.perf_counter() - t0
+        while (ln := lines.get(timeout=60)) is not None:   # printed, so
+            if ln.startswith("ACK"):                        # acknowledged
+                acked = int(ln.split()[1])
+        if proc.returncode != -signal.SIGKILL:
+            raise AssertionError(f"phase 21 kill: the child ended with "
+                                 f"{proc.returncode}")
+        counts_seen = launches.split()[1:4:2] if launches else []
+        if not (device and device.startswith("cuda") and counts_seen
+                and all(int(c) > 0 for c in counts_seen)):
+            raise AssertionError(f"phase 21 kill: the child ran on "
+                                 f"{device}, launches {launches}")
+        if not first or int(first[0]) != 2 or float(first[1]) > 1.0:
+            raise AssertionError(f"phase 21 kill: the child's first kernel "
+                                 f"use from two threads: launches, max "
+                                 f"|err| / tol: {first}")
+        t0 = time.perf_counter()
+        (eng, reopen_s), _, counts = counted(
+            torch, "phase 21 reopen after the SIGKILL (replay)",
+            lambda: (Engine(EngineConfig(device=DEV,
+                                         data_dir=os.path.join(root, "data"),
+                                         start_background=False)).open(),
+                     time.perf_counter() - t0), ())
+        idx = eng.indexes["kill"].index
+        n = acked + 1
+        rows = [idx.ids.get(f"k{i}") for i in range(n)]
+        if any(r is None for r in rows):
+            raise AssertionError(f"phase 21 kill: {rows.count(None)} "
+                                 "acknowledged ids missing")
+        if not torch.equal(idx.state.vectors[torch.tensor(rows, device=DEV)
+                                             .long()],
+                           torch.from_numpy(X[:n]).to(DEV)):
+            raise AssertionError("phase 21 kill: an acknowledged vector did "
+                                 "not read back bit-equal")
+        worst = [0.0]
+
+        def self_nearest():
+            # at a distance within float rounding of 0 (RTOL of the L2
+            # terms' magnitude, 4|v|^2), as phase 15 holds its re-adds
+            for i in range(0, n, BATCH):
+                q = X[i:min(n, i + BATCH)]
+                tol = RTOL * 4.0 * np.einsum("bd,bd->b", q, q)
+                for j, hits in enumerate(eng.search("kill", q, k=1)):
+                    h = hits[0]
+                    other = int(h["id"][1:])
+                    worst[0] = max(worst[0], abs(h["distance"]))
+                    if abs(h["distance"]) > tol[j] or (
+                            other != i + j
+                            and not np.array_equal(X[other], q[j])):
+                        raise AssertionError(f"phase 21 kill: k{i + j} "
+                                             f"found {h}")
+        _, search_s, scounts = counted(
+            torch, "phase 21 every acknowledged row searched for itself",
+            self_nearest, ("scan_pass_a", "gather_dist"))
+        had = len(idx._unlinked)
+        _, beam_s, bcounts = counted(
+            torch, "phase 21 beam after the SIGKILL",
+            lambda: idx.search(X[:BEAM_B], K, mode="beam"),
+            ("gather_dist",))
+        if idx._unlinked:
+            raise AssertionError("phase 21 kill: the beam left a backlog")
+        print(f"phase serve: the child's first use of the kernel library "
+              f"from two threads at once: {first[0]} gather_dist launches, "
+              f"each within {float(first[1]):.3g} of its tolerance of the "
+              f"plain version [{card}]", flush=True)
+        print(f"phase serve: SIGKILL: the child ({device}) acknowledged "
+              f"{batches} add_batch of {KILL_BATCH} and {singles} single "
+              f"adds (last k{acked}), launches {launches}, killed after "
+              f"{child_s:.3f} s; reopened on the card in {reopen_s:.3f} s "
+              f"(replay gather_dist launches {counts['gather_dist']}): "
+              f"{n} acknowledged ids back, bit-equal, each its own nearest "
+              f"row (max |d| {worst[0]:.6g}; {search_s:.3f} s); the beam "
+              f"drained "
+              f"{had} unlinked rows ({beam_s:.3f} s, gather_dist "
+              f"{bcounts['gather_dist']}) [{card}]", flush=True)
+        eng._aof.close()
+        eng.indexes.clear()
+        del idx, eng
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"acked": n, "batches": batches, "singles": singles,
+            "child_s": child_s, "reopen_s": reopen_s, "max_d": worst[0],
+            "search_counts": scounts, "beam_counts": bcounts}
+
+
+def serve_phase(torch, persist: dict, rag, rag_q, host_eng, main: dict,
+                card: str) -> dict:
+    """Phase 21: the port as `serve` deploys it, on the card."""
+    t0 = time.perf_counter()
+    storm = serve_storm(torch, persist["serve_dir"],
+                        persist["serve_queries"], card)
+    decay = serve_decay(torch, rag, rag_q, card)
+    host = serve_host(torch, host_eng, main["queries"], card)
+    kill = serve_kill(torch, card)
+    wall = time.perf_counter() - t0
+    print(f"phase serve: {wall:.1f} s [{card}]", flush=True)
+    return {"storm": storm, "decay": decay, "host": host, "kill": kill,
+            "wall_s": wall}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4102,6 +4848,8 @@ def main() -> int:
     server = server_phase(torch, main, card)
     minilm = minilm_phase(torch, card)
     shards = shard_phase(torch, main, exact, card)
+    serve = serve_phase(torch, persist, eng, Q, host.pop("engine"), main,
+                        card)
 
     leaked = [m for m in sys.modules
               if m in ("jax", "jaxlib", "kektordb_tpu", "ml_dtypes")
@@ -4137,6 +4885,15 @@ def main() -> int:
           f"{main['qps']:.1f} at {main['recall']:.4f}; replicated "
           f"({REPLICAS} processes x {REPLICA_SHARDS} shards) "
           f"{shards['replicas']['qps']:.1f} QPS [{card}]", flush=True)
+    st, kl = serve["storm"], serve["kill"]
+    print(f"phase times: serving as deployed (phase 21, {serve['wall_s']:.1f}"
+          f" s): storm {st['storm_s']:.3f} s, writers {st['ops']} ops, "
+          f"readers {st['reads']} searches (longest "
+          f"{max(st['waits']):.3f} s), background snapshots "
+          f"{len(st['snapshots_s'])} (longest "
+          f"{max(st['snapshots_s']):.3f} s); SIGKILL reopen "
+          f"{kl['reopen_s']:.3f} s for {kl['acked']} acknowledged rows "
+          f"[{card}]", flush=True)
     print(f"phase total: {time.perf_counter() - t_start:.1f} s [{card}]",
           flush=True)
     # no single PyTorch call computes any of these kernels' functions
@@ -4172,7 +4929,15 @@ def main() -> int:
                 shards["more"]["int8_launches"],
             f"phase 20, replicated read, rank 0, {REPLICA_SEARCHES} "
             f"searches of {REPLICA_SHARDS} shards":
-                shards["replicas"]["launches"]},
+                shards["replicas"]["launches"],
+            "phase 21, serve storm (readers, writers, background thread)":
+                serve["storm"]["counts"]["scan_pass_a"],
+            "phase 21, decayed searches in 2 threads":
+                serve["decay"]["counts"]["scan_pass_a"],
+            "phase 21, host sweeps in 2 threads":
+                serve["host"]["counts"]["scan_pass_a"],
+            "phase 21, every row searched after the SIGKILL":
+                serve["kill"]["search_counts"]["scan_pass_a"]},
         "max_abs_err": max(max_err, path_errs["scan_pass_a"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4220,7 +4985,7 @@ def main() -> int:
         "launches_by_path": {
             "graph build (1M f32)": graph["build_launches"],
             "beam (f32 index)": graph["beam_launches"],
-            "graph build (500k bf16)": bf16["build_launches"],
+            f"graph build ({BF16_N} rows, bf16)": bf16["build_launches"],
             "beam (bf16 index)": bf16["beam_launches"],
             "journaled adds, graph linked (phase 15)":
                 persist["add_launches"],
@@ -4241,7 +5006,14 @@ def main() -> int:
             "sharded scan re-rank (phase 20)":
                 shards["scan"]["gather_launches"],
             "replicated read re-rank, rank 0 (phase 20)":
-                shards["replicas"]["gather_launches"]},
+                shards["replicas"]["gather_launches"],
+            "serve storm: re-ranks and the background thread's links "
+            "(phase 21)": serve["storm"]["counts"]["gather_dist"],
+            "decayed searches in 2 threads (phase 21)":
+                serve["decay"]["counts"]["gather_dist"],
+            "self-searches and beam after the SIGKILL (phase 21)":
+                serve["kill"]["search_counts"]["gather_dist"]
+                + serve["kill"]["beam_counts"]["gather_dist"]},
         "chunk_share_bf16_build": bf16["chunk_gather_share"]}]
     # the projected read's new shapes: pass A's bf16 form at depth PROJ_P
     # and the full-dimension re-rank, each timed on that read's operands

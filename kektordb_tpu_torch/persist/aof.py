@@ -120,13 +120,17 @@ def read_frames(path: str,
 
 
 class AOFWriter:
-    """The journal file (pkg/persistence/aof.go:34), opened for append;
-    LazyAOFWriter writes its frames."""
+    """Synchronous framed writer of the journal file
+    (pkg/persistence/aof.go:34), opened for append; LazyAOFWriter writes
+    its frames through it."""
 
     def __init__(self, path: str):
         self.path = path
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self._f = open(path, "ab")
+
+    def write(self, payload: bytes, opcode: int = OP_COMMAND) -> None:
+        self._f.write(encode_frame(payload, opcode))
 
     def flush(self, fsync: bool = False) -> None:
         self._f.flush()
@@ -140,6 +144,13 @@ class AOFWriter:
     def truncate(self) -> None:
         self._f.close()
         self._f = open(self.path, "wb")
+
+    def replace_with(self, tmp_path: str) -> None:
+        """Atomic swap used by AOF rewrite (RewriteAOF, recovery.go:573+):
+        the file at `tmp_path` becomes the journal, opened for append."""
+        self._f.close()
+        os.replace(tmp_path, self.path)
+        self._f = open(self.path, "ab")
 
     def close(self) -> None:
         self._f.flush()
@@ -165,8 +176,9 @@ class LazyAOFWriter:
         self._shadow: Optional[list[bytes]] = None
         self._lock = threading.Lock()    # guards _buf and _shadow
         # guards the file: the thread's flush must not meet a truncate
-        # between its close and reopen
-        self._io = threading.Lock()
+        # between its close and reopen (reentrant: replace_with flushes
+        # under it)
+        self._io = threading.RLock()
         self._wake = threading.Event()
         self._stop = False
         self._last_fsync = time.monotonic()
@@ -240,6 +252,14 @@ class LazyAOFWriter:
             with self._lock:
                 self._buf.clear()
             self._inner.truncate()
+
+    def replace_with(self, tmp_path: str) -> None:
+        """Flush the buffered frames into the current file, then swap in
+        the file at `tmp_path` (AOFWriter.replace_with); the thread's
+        flush cannot land between the two."""
+        with self._io:
+            self.flush()
+            self._inner.replace_with(tmp_path)
 
     def close(self) -> None:
         self._stop = True
