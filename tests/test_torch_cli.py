@@ -60,11 +60,14 @@ class Serve:
         while time.time() < deadline:
             if self.proc.poll() is not None:
                 raise AssertionError(self.proc.stdout.read())
+            # a probe that is refused, or that a host busy with other
+            # processes does not answer in 2 s, is retried until the
+            # deadline
             try:
                 if requests.get(self.base + "/healthz",
                                 timeout=2).status_code == 200:
                     return
-            except requests.ConnectionError:
+            except (requests.ConnectionError, requests.Timeout):
                 time.sleep(0.2)
         self.proc.kill()
         raise AssertionError("server did not answer /healthz")

@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 import pytest
+from test_torch_native import private_reference_native
 
 from kektordb_tpu.engine import Engine as JEngine
 from kektordb_tpu.engine import EngineConfig as JEngineConfig
@@ -43,6 +44,14 @@ REPO = os.path.join(os.path.dirname(__file__), "..")
 DIM = 8
 BULK = 64           # rows of the writer's add_batch
 MIN_ACKED = 80      # the last acknowledged id before the kill, at least
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """The reference's replay scans on its C++ library, built for this
+    module alone."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 def vec(i: int, dim: int = DIM) -> np.ndarray:

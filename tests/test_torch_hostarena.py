@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_native import private_reference_native
 
 from kektordb_tpu.engine import Engine as JEngine
 from kektordb_tpu.engine import EngineConfig as JEngineConfig
@@ -34,6 +35,14 @@ from kektordb_tpu_torch.persist import checkpoint as ckpt
 from kektordb_tpu_torch.persist import index_io
 
 RTOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """The reference's replay scans on its C++ library, built for this
+    module alone."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)

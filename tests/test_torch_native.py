@@ -17,10 +17,22 @@ source `csrc/host/kektor_native.cpp`) against the JAX package's
 * Arena files cross between the packages byte for byte; bad files raise.
 * The distance entries bound directly, against numpy.
 * No fallback: without g++, or after a failed build, the library raises.
+* The reference's first-use build loses its library to a concurrent
+  writer for the rest of the process; the port's tests load a private
+  build of it (`private_reference_native`), and the port's own build
+  survives four processes building at once.
 """
 
+import contextlib
 import ctypes
+import logging
+import os
+import shutil
+import subprocess
+import sys
+import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,13 +48,37 @@ from kektordb_tpu_torch.ops import distance as dist
 from kektordb_tpu_torch.persist import aof, resp
 
 RTOL = 1e-5        # f32 distances summed in another order
+REPO = Path(__file__).resolve().parents[1]
+
+
+@contextlib.contextmanager
+def private_reference_native(directory):
+    """The JAX package's C++ library, built by its own `_build` (its flags,
+    its source) into `directory` and loaded by this process alone, for the
+    span of the block; yields the loaded library.
+
+    The shared `kektor_native.so` beside the reference's source is never
+    read: the reference builds it there at first use with no temporary
+    name and no lock, and marks its load tried before the first attempt,
+    so a process that opens it while another process writes it keeps the
+    Python fallbacks for its whole life, or dies of SIGBUS."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_SO", str(directory / "kektor_native.so"))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_tried", False)
+        assert jnative.available(), \
+            "the reference's kektor_native did not build"
+        yield jnative.get_lib()
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _reference_native():
-    """The reference's C++ library must have built, or its scanner and
-    top-k silently take their Python fallbacks."""
-    assert jnative.available(), "the reference's kektor_native did not build"
+def _reference_native(tmp_path_factory):
+    """The reference's scanner, top-k and arena calls run on its C++
+    library, not on their silent Python fallbacks."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 # ------------------------------------------------------------------ crc32
@@ -508,3 +544,128 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     assert "error" in str(err.value)
     assert not list((tmp_path / "build").glob("*/" + hn.LIB_NAME))
     assert list((tmp_path / "build").glob("*/build.log"))
+
+
+# ------------------------------------------------------- first-use builds
+
+def test_reference_load_is_lost_to_a_half_written_library(tmp_path,
+                                                          monkeypatch,
+                                                          caplog):
+    """The reference's library as a process finds it while another
+    process's g++ is still writing it: an empty `kektor_native.so`, newer
+    than its source, fails to load, and the reference never tries again
+    (`_tried` is set before the first attempt), so the process keeps the
+    Python fallbacks. A truncated ELF would kill the process with SIGBUS
+    instead. `private_reference_native` still loads the C++ library on
+    the same process state."""
+    src = tmp_path / "kektor_native.cpp"
+    shutil.copyfile(jnative._SRC, src)
+    so = tmp_path / "kektor_native.so"
+    so.write_bytes(b"")
+    later = src.stat().st_mtime + 10
+    os.utime(so, (later, later))
+    for name, value in (("_SRC", str(src)), ("_SO", str(so)),
+                        ("_lib", None), ("_tried", False)):
+        monkeypatch.setattr(jnative, name, value)
+    buf = _corrupt(_journal(49), "short_tail")
+    with caplog.at_level(logging.WARNING, logger="kektordb.native"):
+        assert not jnative.available()
+    assert "native load failed" in caplog.text
+    assert not jnative.available() and jnative._tried
+    assert so.stat().st_size == 0                  # never rebuilt
+    assert jnative.scan_frames(buf)[1] == 1        # the Python scanner's
+    private = tmp_path / "private"
+    with private_reference_native(private) as lib:
+        assert jnative.get_lib() is lib
+        assert lib._name == str(private / "kektor_native.so")
+        assert jnative.scan_frames(buf)[1] == 0    # the C++ loop's
+    assert not jnative.available()                 # poisoned again
+
+
+# a g++ that writes its output in two halves; the first call to get to the
+# second half waits there until the test lets it go on
+_SLOW_GXX = """#!%(python)s
+import os, subprocess, sys, time
+args = sys.argv[1:]
+if "-o" not in args:
+    os.execv(%(gxx)r, [%(gxx)r] + args)
+out = args[args.index("-o") + 1]
+obj = os.path.join(%(gate)r, "obj.%%d" %% os.getpid())
+args[args.index("-o") + 1] = obj
+rc = subprocess.run([%(gxx)r] + args).returncode
+if rc:
+    sys.exit(rc)
+data = open(obj, "rb").read()
+os.unlink(obj)
+with open(out, "wb") as f:
+    f.write(data[:len(data) // 2])
+try:
+    os.close(os.open(os.path.join(%(gate)r, "paused"),
+                     os.O_CREAT | os.O_EXCL))
+    deadline = time.monotonic() + 60
+    while not os.path.exists(os.path.join(%(gate)r, "resume")) \\
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+except FileExistsError:
+    pass
+with open(out, "ab") as f:
+    f.write(data[len(data) // 2:])
+"""
+
+_BUILD_CHILD = """
+import sys
+from pathlib import Path
+from kektordb_tpu_torch import host_native as hn
+hn.BUILD_ROOT = Path(sys.argv[1])
+print(hn.crc32(b"kektor"))
+"""
+
+
+def test_port_builds_survive_concurrent_first_use(tmp_path):
+    """Four processes build the host library into one empty build root:
+    the first holds half of its compiler's output on disk while the other
+    three start at once, find no library, and build and load their own.
+    Each gets the library, one file comes out, and no temporary is left.
+    This is the output under a temporary name, renamed into place with
+    `os.replace` (`host_native.build`), which the reference's build
+    lacks: a process that loads a half-written library fails or dies.
+    `native.py`'s CUDA build uses the same pattern but needs nvcc, so it
+    is not run here."""
+    gate, bindir, root = (tmp_path / d for d in ("gate", "bin", "build"))
+    gate.mkdir()
+    bindir.mkdir()
+    gxx = bindir / "g++"
+    gxx.write_text(_SLOW_GXX % {"python": sys.executable, "gate": str(gate),
+                                "gxx": shutil.which("g++")})
+    gxx.chmod(0o755)
+    env = dict(os.environ, PATH=f"{bindir}{os.pathsep}{os.environ['PATH']}")
+
+    def start():
+        return subprocess.Popen([sys.executable, "-c", _BUILD_CHILD,
+                                 str(root)], cwd=REPO, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    procs = [start()]
+    try:
+        deadline = time.monotonic() + 60
+        while not (gate / "paused").exists() and procs[0].poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert (gate / "paused").exists(), \
+            f"the first build never paused (rc {procs[0].poll()})"
+        procs += [start() for _ in range(3)]
+        outs = [p.communicate(timeout=120) for p in procs[1:]]
+        (gate / "resume").touch()
+        outs.insert(0, procs[0].communicate(timeout=120))
+    finally:
+        (gate / "resume").touch()
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert out.split() == [str(zlib.crc32(b"kektor"))]
+    (out_dir,) = root.iterdir()
+    assert sorted(f.name for f in out_dir.iterdir()) == \
+        ["build.log", hn.LIB_NAME]

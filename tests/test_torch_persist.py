@@ -3,9 +3,9 @@
 * RESP commands and AOF frames are the same bytes, and parse back the
   same.
 * `aof.read_frames` / `scan_frames` find the same frames as both of the
-  reference's scanners (its C++ `kn_scan_frames`, where it builds, and its
-  Python one) on clean and corrupted journals, and the same count of
-  corrupt regions as its Python scanner.
+  reference's scanners (its C++ `kn_scan_frames`, from a build private
+  to this module, and its Python one) on clean and corrupted journals,
+  and the same count of corrupt regions as its Python scanner.
 * The lazy writer's shadow buffer and its inline flush at BUFFER_CAP.
 * Checkpoints: a generation written by either package loads in the other
   with every array bit-equal, bf16 under "<k>::bf16" (and a raw 2-byte
@@ -20,6 +20,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from test_torch_native import private_reference_native
 
 from kektordb_tpu.native import _scan_frames_py as j_scan_py
 from kektordb_tpu.native import scan_frames as j_scan
@@ -35,6 +36,13 @@ PARTS = [
     [b""],
     [],
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """`j_scan` is the reference's C++ scanner, not its Python fallback."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 @pytest.mark.parametrize("parts", PARTS, ids=[f"cmd{i}" for i in

@@ -28,6 +28,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from test_torch_native import private_reference_native
 
 from kektordb_tpu.engine import Engine as JEngine
 from kektordb_tpu.engine import EngineConfig as JEngineConfig
@@ -37,6 +38,14 @@ from kektordb_tpu_torch.index import HNSWIndex
 RTOL, ATOL = 1e-5, 1e-4
 T0 = 1.75e9
 N, D = 600, 16
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """The reference's replay scans on its C++ library, built for this
+    module alone."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)

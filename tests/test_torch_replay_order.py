@@ -29,6 +29,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from test_torch_native import private_reference_native
 
 from kektordb_tpu.engine import Engine as JEngine
 from kektordb_tpu.engine import EngineConfig as JEngineConfig
@@ -42,6 +43,14 @@ KINDS = {"flat": dict(kind="flat"),
          "hnsw": dict(m=8, ef_construction=32)}
 # the scenarios' kinds: a port index of 2 shards besides
 KIND_ARGS = {**KINDS, "sharded": dict(m=8, ef_construction=32, shards=2)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """The reference's replay scans on its C++ library, built for this
+    module alone."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -28,6 +28,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_native import private_reference_native
 
 from kektordb_tpu.index import HNSWConfig as JConfig
 from kektordb_tpu.parallel import ShardedHNSW as JSharded
@@ -43,6 +44,14 @@ from kektordb_tpu_torch.persist import checkpoint, index_io
 
 RTOL, ATOL = 1e-5, 1e-4
 CFG = dict(m=8, ef_construction=64, ef_search=64, chunk=256)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """The reference's replay scans on its C++ library, built for this
+    module alone."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -17,6 +17,7 @@ flush; the rest is here.
 import os
 
 import pytest
+from test_torch_native import private_reference_native
 from test_torch_port_reference import reference_cases
 
 from kektordb_tpu.persist import aof as jaof
@@ -28,6 +29,14 @@ exec(compile(reference_cases("test_text_persist.py", ["TestBM25"]),
              "test_text_persist.py", "exec"))
 
 PACKAGES = {"port": (taof, tbm25), "reference": (jaof, jbm25)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """The reference's replay scans on its C++ library, built for this
+    module alone."""
+    with private_reference_native(tmp_path_factory.mktemp("ref_native")):
+        yield
 
 
 def _ranking(bm25):
