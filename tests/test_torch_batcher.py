@@ -2,7 +2,7 @@
 JAX package's tests/test_batcher.py.
 
 * The reference's two cases run against the port's server: `make_app`
-  over `Engine(device="cpu")` with a gardener, as the reference's
+  over `Engine(device=DEVICE)` with a gardener, as the reference's
   `test_http.ServerFixture` builds it (the cases' source read, every
   `kektordb_tpu` module made the port's).
 * Coalesced against serial: concurrent plain, filtered and hybrid
@@ -15,7 +15,7 @@ import concurrent.futures as cf
 
 import numpy as np
 import requests
-from test_torch_port_reference import reference_cases
+from test_torch_port_reference import DEVICE, reference_cases
 from test_torch_server import Server
 
 from kektordb_tpu.engine import Engine as JEngine
@@ -30,12 +30,12 @@ exec(compile(reference_cases("test_batcher.py", [
 
 
 class ServerFixture(Server):
-    """The reference's fixture over the port: an Engine on the CPU, the
+    """The reference's fixture over the port: an Engine on DEVICE, the
     gardener, `make_app` on 127.0.0.1:0. The cases above look the name up
     when they run, so they get this class, not test_http's."""
 
     def __init__(self):
-        engine = Engine(EngineConfig(device="cpu",
+        engine = Engine(EngineConfig(device=DEVICE,
                                      start_background=False)).open()
         super().__init__(engine, gardener=Gardener(
             engine, config=GardenerConfig(), embedder=HashingEmbedder()))

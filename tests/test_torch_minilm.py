@@ -10,8 +10,11 @@ to the JAX package's.
   safetensors and tokenizers round trip, pooling detection and the
   embedder factory) and its seeded `transformers.BertModel` parity
   (tests/test_bert_torch_parity.py) run against the port: their source is
-  read, every `kektordb_tpu` module becomes its `kektordb_tpu_torch` copy,
-  and the encoder runs on the CPU.
+  read, every `kektordb_tpu` module becomes its `kektordb_tpu_torch` copy
+  (test_torch_port_reference), and the encoder runs on DEVICE. So does
+  tests/test_minilm_real.py's `test_download_wiring_probes_network` (the
+  local model path, no network); its real-weights case needs the
+  published checkpoint (NOT_TRANSPOSED).
 * `MiniLMEmbedder` feeds an Engine on the CPU and a text search returns
   the document it was given.
 """
@@ -22,6 +25,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_port_reference import DEVICE, reference_cases
 
 from kektordb_tpu.services import minilm as jminilm
 from kektordb_tpu_torch.services import minilm as tminilm
@@ -29,36 +33,40 @@ from kektordb_tpu_torch.services import minilm as tminilm
 _HERE = Path(__file__).resolve().parent
 
 
-class _CPUEncoder(tminilm.MiniLMEncoder):
-    """The port's encoder with the CPU as its default device."""
+class _DeviceEncoder(tminilm.MiniLMEncoder):
+    """The port's encoder with DEVICE as its default device."""
 
     def __init__(self, *a, **kw):
-        kw.setdefault("device", "cpu")
+        kw.setdefault("device", DEVICE)
         super().__init__(*a, **kw)
 
     @classmethod
     def from_params(cls, *a, **kw):
-        kw.setdefault("device", "cpu")
+        kw.setdefault("device", DEVICE)
         return super().from_params(*a, **kw)
 
 
-def _port_source(path: Path) -> str:
-    src = path.read_text()
-    src = re.sub(r"^(\s*)from kektordb_tpu\.services\.minilm import "
-                 r"MiniLMEncoder$", r"\1MiniLMEncoder = _CPUEncoder", src,
-                 flags=re.M)
-    return re.sub(r"\bkektordb_tpu\b", "kektordb_tpu_torch", src)
+def _port_source(src: str) -> str:
+    """`reference_cases` with the encoder made on DEVICE."""
+    return re.sub(r"^(\s*)from kektordb_tpu_torch\.services\.minilm "
+                  r"import MiniLMEncoder$",
+                  r"\1MiniLMEncoder = _DeviceEncoder", src, flags=re.M)
 
 
-for _ref in ("test_minilm.py", "test_bert_torch_parity.py"):
-    exec(compile(_port_source(_HERE / _ref), str(_HERE / _ref), "exec"))
+exec(compile(_port_source(reference_cases("test_minilm.py")),
+             str(_HERE / "test_minilm.py"), "exec"))
+exec(compile(_port_source(reference_cases("test_bert_torch_parity.py")),
+             str(_HERE / "test_bert_torch_parity.py"), "exec"))
+exec(compile(reference_cases("test_minilm_real.py",
+                             ["test_download_wiring_probes_network"]),
+             str(_HERE / "test_minilm_real.py"), "exec"))
 
 
 def test_reference_cases_were_ported():
     for ref in ("test_minilm.py", "test_bert_torch_parity.py"):
-        src = _port_source(_HERE / ref)
+        src = _port_source(reference_cases(ref))
         assert "kektordb_tpu." not in src.replace("kektordb_tpu_torch.", "")
-        assert "MiniLMEncoder = _CPUEncoder" in src \
+        assert "MiniLMEncoder = _DeviceEncoder" in src \
             or "from kektordb_tpu_torch.services.minilm" not in src
 
 

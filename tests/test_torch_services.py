@@ -2,22 +2,22 @@
 text/splitter.py, text/compressor.py), copies of the JAX package's.
 
 The reference's own cases (tests/test_services.py) run against the
-copies: its source is read, every `kektordb_tpu` module becomes its
-`kektordb_tpu_torch` copy and every Engine runs on the CPU, and the
-resulting test classes and functions are collected here under their own
-names. Then the port's own rules: MCP lists the reference's 61 tools, and
-each one dispatches cleanly on an engine holding a vector, a link and a
-KV key; the local MiniLM embedder is ported (it needs weights on disk,
-and raises its loader's error without them), while "auto" keeps the
-reference's fallback to hashing.
+copies (test_torch_port_reference.reference_cases: every `kektordb_tpu`
+module becomes its `kektordb_tpu_torch` copy and every Engine runs on
+DEVICE), collected here under their own names. Then the port's own
+rules: MCP lists the reference's 61 tools, and each one dispatches
+cleanly on an engine holding a vector, a link and a KV key; the local
+MiniLM embedder is ported (it needs weights on disk, and raises its
+loader's error without them), while "auto" keeps the reference's
+fallback to hashing.
 """
 
 import json
-import re
 from pathlib import Path
 
 import numpy as np
 import pytest
+from test_torch_port_reference import DEVICE, reference_cases
 
 from kektordb_tpu.engine import Engine as JEngine
 from kektordb_tpu.engine import EngineConfig as JEngineConfig
@@ -30,19 +30,14 @@ from kektordb_tpu_torch.services import embeddings
 _REF = Path(__file__).resolve().parent / "test_services.py"
 
 
-def _port_source(src: str) -> str:
-    src = re.sub(r"\bkektordb_tpu\b", "kektordb_tpu_torch", src)
-    return src.replace("EngineConfig(start_background=False)",
-                       'EngineConfig(device="cpu", start_background=False)')
-
-
-exec(compile(_port_source(_REF.read_text()), str(_REF), "exec"))
+exec(compile(reference_cases("test_services.py"), str(_REF), "exec"))
 
 
 def test_reference_cases_were_ported():
-    src = _port_source(_REF.read_text())
+    src = reference_cases("test_services.py")
     assert "from kektordb_tpu." not in src
-    assert src.count('device="cpu"') == \
+    assert src.count(f'EngineConfig(start_background=False, '
+                     f'device="{DEVICE}")') == \
         _REF.read_text().count("EngineConfig(start_background=False)") >= 3
 
 
