@@ -40,6 +40,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 
 from .. import device as devlib
+from .. import tracing
 from ..index.base import IDMap
 from ..index.bruteforce import BruteForceIndex
 from ..index.hostarena import HostArenaIndex
@@ -606,22 +607,36 @@ class Engine:
                       decay=decay, index=index, columnar=columnar)
         # settle pending writes under the EXCLUSIVE side, then search
         # under the SHARED side; a writer slipping in between forces a
-        # retry
-        for _ in range(8):
-            with self._lock:
-                idx = h.index
-                settle = getattr(idx, "settle_for_serving", None)
-                if settle is not None:
-                    settle()
-            with self._lock.read():
-                if idx is not h.index:
-                    continue                      # index swapped under us
-                dirty = getattr(idx, "serving_dirty", None)
-                if dirty is not None and dirty():
-                    continue                      # writer snuck in: retry
-                return self._search_locked(h, idx, q, B, k, **kwargs)
-        with self._lock:          # pathological write pressure: go exclusive
-            return self._search_locked(h, h.index, q, B, k, **kwargs)
+        # retry. The span engine.lock sums the time spent acquiring both
+        # sides; engine.search_retries counts the retries and the
+        # exclusive fallback.
+        with tracing.span("engine.search", n=B):
+            lock = tracing.Tally("engine.lock")
+            try:
+                for _ in range(8):
+                    with lock.acquiring(self._lock):
+                        idx = h.index
+                        settle = getattr(idx, "settle_for_serving", None)
+                        if settle is not None:
+                            with tracing.span("engine.settle"):
+                                settle()
+                    with lock.acquiring(self._lock.read()):
+                        dirty = getattr(idx, "serving_dirty", None)
+                        if idx is not h.index \
+                                or dirty is not None and dirty():
+                            # index swapped under us, or a writer snuck
+                            # in: retry
+                            tracing.count("engine.search_retries")
+                            continue
+                        return self._search_locked(h, idx, q, B, k,
+                                                   **kwargs)
+                # pathological write pressure: go exclusive
+                tracing.count("engine.search_retries")
+                with lock.acquiring(self._lock):
+                    return self._search_locked(h, h.index, q, B, k,
+                                               **kwargs)
+            finally:
+                lock.close()
 
     def _search_locked(self, h, idx, q, B, k, *, ef, filter, text_query,
                        alpha, graph_root, graph_depth, graph_relation,
@@ -672,7 +687,8 @@ class Engine:
         text_rows = np.empty(0, np.int64)
         text_vals = np.empty(0, np.float64)
         if text_query:
-            text_rows, text_vals = h.meta.text.search_arrays(text_query)
+            with tracing.span("engine.text"):
+                text_rows, text_vals = h.meta.text.search_arrays(text_query)
             if text_rows.size:
                 m = text_rows < cap
                 if allow is not None:
@@ -692,32 +708,40 @@ class Engine:
                 # scan's device tensors, one copy back (ops/fuse.py); the
                 # host path below is the same math
                 sd = getattr(idx, "search_device", None)
-                res = sd(q, fetch, allow_rows=allow_arg) \
-                    if sd is not None else None
+                res = None
+                if sd is not None:
+                    with tracing.span("engine.scan"):
+                        res = sd(q, fetch, allow_rows=allow_arg)
                 if res is not None:
                     d_dev, rows_dev, scale = res
-                    sc, rw, dd = fuselib.fused_topk(
-                        d_dev, rows_dev, text_rows, text_vals,
-                        alpha if text_rows.size else 1.0, k,
-                        scale, cap_t=max(self.TEXT_CAND_CAP, 4 * k),
-                        decay_dev=self._decay_device(h, cap)
-                        if decay_on else None)
-                    return self._emit_topk(h, idx, sc, rw, dd, B, k,
-                                           include_metadata, columnar)
-            d, rows_out = idx.search(q, fetch, ef=ef, allow_rows=allow_arg)
-            d = np.asarray(d, np.float32)
-            rows_out = np.asarray(rows_out, np.int64)
+                    with tracing.span("engine.fuse"):
+                        sc, rw, dd = fuselib.fused_topk(
+                            d_dev, rows_dev, text_rows, text_vals,
+                            alpha if text_rows.size else 1.0, k,
+                            scale, cap_t=max(self.TEXT_CAND_CAP, 4 * k),
+                            decay_dev=self._decay_device(h, cap)
+                            if decay_on else None)
+                    with tracing.span("engine.assemble"):
+                        return self._emit_topk(h, idx, sc, rw, dd, B, k,
+                                               include_metadata, columnar)
+            with tracing.span("engine.scan"):
+                d, rows_out = idx.search(q, fetch, ef=ef,
+                                         allow_rows=allow_arg)
+                d = np.asarray(d, np.float32)
+                rows_out = np.asarray(rows_out, np.int64)
             if text_rows.size == 0 and not decay_on:
-                return self._assemble_fast(h, idx, d, rows_out, B, k,
-                                           include_metadata,
-                                           columnar=columnar)
+                with tracing.span("engine.assemble"):
+                    return self._assemble_fast(h, idx, d, rows_out, B, k,
+                                               include_metadata,
+                                               columnar=columnar)
         else:
             d = np.zeros((B, 0), np.float32)
             rows_out = np.zeros((B, 0), np.int64)
-        return self._assemble_fused(
-            h, idx, d, rows_out, B, k, text_rows=text_rows,
-            text_vals=text_vals, alpha=alpha, decay=decay,
-            include_metadata=include_metadata, columnar=columnar)
+        with tracing.span("engine.assemble"):
+            return self._assemble_fused(
+                h, idx, d, rows_out, B, k, text_rows=text_rows,
+                text_vals=text_vals, alpha=alpha, decay=decay,
+                include_metadata=include_metadata, columnar=columnar)
 
     # cap on text-branch candidates folded into the fusion (BM25 can match
     # thousands of rows; beyond the top few hundred they cannot reach the

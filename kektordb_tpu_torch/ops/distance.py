@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from .. import device as _device  # noqa: F401  (TF32 off)
-from .. import native
+from .. import native, tracing
 
 # Metrics and precisions: the same names as the reference
 L2 = "euclidean"
@@ -113,7 +113,8 @@ def gathered(
     if vectors.dtype != torch.int8:
         if not vectors.is_cuda:
             return gathered_plain(vectors, ids, queries, metric)
-        return _gather_dist(vectors, ids, queries, metric)
+        with tracing.kernel_range("distance.gathered"):
+            return _gather_dist(vectors, ids, queries, metric)
     safe = torch.clamp_min(ids, 0).long()
     vecs = vectors[safe]                                   # [B, C, D]
     if queries.dtype == torch.int8:

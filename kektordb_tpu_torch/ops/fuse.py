@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
+
 INF = float("inf")
 
 # rows sentinel for text-candidate padding: larger than any row index, so
@@ -256,23 +258,24 @@ def fused_topk(d_dev, rows_dev, text_rows: np.ndarray,
     device-to-host copy of the three results (rows travel bit-cast as
     f32). Counts its calls in `fused_topk.calls`."""
     fused_topk.calls += 1
-    dev = d_dev.device
-    tr, tsn = prepare_text(text_rows, text_vals, cap_t)
+    with tracing.kernel_range("fuse.fused_topk"):
+        dev = d_dev.device
+        tr, tsn = prepare_text(text_rows, text_vals, cap_t)
 
-    def f32(x):
-        return torch.tensor(x, dtype=torch.float32, device=dev)
-    dec = now_rel = None
-    if decay_dev is not None:
-        dec = decay_dev.packed
-        now_rel = f32((now if now is not None else time.time())
-                      - decay_dev.epoch)
-    sc, rw, dd = _fuse_topk(d_dev.float().contiguous(),
-                            rows_dev.int().contiguous(),
-                            torch.from_numpy(tr).to(dev),
-                            torch.from_numpy(tsn).to(dev), f32(alpha),
-                            f32(scale), k, decay=dec, now_rel=now_rel)
-    out = torch.stack([sc, rw.view(torch.float32), dd]).cpu().numpy()
-    return out[0], out[1].view(np.int32), out[2]
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev)
+        dec = now_rel = None
+        if decay_dev is not None:
+            dec = decay_dev.packed
+            now_rel = f32((now if now is not None else time.time())
+                          - decay_dev.epoch)
+        sc, rw, dd = _fuse_topk(d_dev.float().contiguous(),
+                                rows_dev.int().contiguous(),
+                                torch.from_numpy(tr).to(dev),
+                                torch.from_numpy(tsn).to(dev), f32(alpha),
+                                f32(scale), k, decay=dec, now_rel=now_rel)
+        out = torch.stack([sc, rw.view(torch.float32), dd]).cpu().numpy()
+        return out[0], out[1].view(np.int32), out[2]
 
 
 fused_topk.calls = 0

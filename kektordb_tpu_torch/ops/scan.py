@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from .. import native
+from .. import native, tracing
 from . import distance as dist
 
 INF = float("inf")
@@ -164,9 +164,11 @@ def pass_a(q: torch.Tensor, vectors: torch.Tensor, biasA: torch.Tensor,
     `pass_a.launches` and in `pass_a.form_launches[form]`; on a CPU tensor
     it runs `pass_a_plain`."""
     form = pass_a_form(q.dtype, vectors.dtype, fast=fast, exact=exact)
-    if not vectors.is_cuda:
-        return pass_a_plain(q, vectors, biasA, biasB, st=st, g=g, form=form)
-    out = launch_pass_a(q, vectors, biasA, biasB, st=st, g=g, form=form)
+    with tracing.kernel_range("scan.pass_a"):
+        if not vectors.is_cuda:
+            return pass_a_plain(q, vectors, biasA, biasB, st=st, g=g,
+                                form=form)
+        out = launch_pass_a(q, vectors, biasA, biasB, st=st, g=g, form=form)
     pass_a.launches += 1
     pass_a.form_launches[form] += 1
     return out
@@ -243,6 +245,12 @@ def pass_b(gmin: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     the k winners are ordered by (value, position), two sorts of [B, k].
     No sort of the whole [B, M]; finding the tied rows waits for the card
     once (their count decides the repair's shape)."""
+    with tracing.kernel_range("scan.pass_b"):
+        return _pass_b(gmin, k)
+
+
+def _pass_b(gmin: torch.Tensor, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     kk = min(k + 1, gmin.shape[1])
     vals, pos = torch.topk(gmin, kk, dim=1, largest=False, sorted=True)
     bd, bp = vals[:, :k], pos[:, :k]

@@ -13,16 +13,25 @@ are exactly coalescible; a shared filter mask / BM25 pass / graph BFS is
 then computed once per device batch instead of once per request). Only
 per-request post-processing (relation hydration) falls through to the
 direct path.
+
+Spans (kektordb_tpu_torch/tracing.py): each request's `batcher.wait`,
+from its enqueue until its batch's `Engine.search` starts, carries the
+id of the `batcher.batch` span, one per flush (its `n` the queries
+coalesced), under which that search's spans nest; a batch is a root of
+its own, not a child of the request that opened it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import logging
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
+
+from .. import tracing
 
 log = logging.getLogger("kektordb.batcher")
 
@@ -31,6 +40,7 @@ log = logging.getLogger("kektordb.batcher")
 class _Pending:
     queries: list[np.ndarray] = field(default_factory=list)
     futures: list[asyncio.Future] = field(default_factory=list)
+    waits: list[tracing.Pending] = field(default_factory=list)
     timer: Optional[asyncio.TimerHandle] = None
 
 
@@ -47,6 +57,7 @@ class QueryBatcher:
         self.window = window_ms / 1000.0
         self.max_batch = max_batch
         self._pending: dict[tuple, _Pending] = {}
+        self._tasks: set[asyncio.Task] = set()
         self.stats = {"batches": 0, "queries": 0, "max_batch_seen": 0}
 
     async def search(self, index: str, query: np.ndarray, k: int,
@@ -75,6 +86,7 @@ class QueryBatcher:
             p.timer = loop.call_later(self.window, self._flush_sync, key)
         p.queries.append(q1)
         p.futures.append(fut)
+        p.waits.append(tracing.Pending("batcher.wait"))
         if len(p.queries) >= self.max_batch:
             if p.timer:
                 p.timer.cancel()
@@ -85,7 +97,11 @@ class QueryBatcher:
         p = self._pending.pop(key, None)
         if p is None or not p.queries:
             return
-        asyncio.ensure_future(self._run(key, p))
+        # an empty context: the batch is no request's child
+        task = asyncio.get_running_loop().create_task(
+            self._run(key, p), context=contextvars.Context())
+        self._tasks.add(task)
+        task.add_done_callback(self._tasks.discard)
 
     async def _run(self, key: tuple, p: _Pending) -> None:
         (index, k, ef, include_metadata, filt, text_query, alpha,
@@ -94,23 +110,32 @@ class QueryBatcher:
         self.stats["queries"] += len(p.queries)
         self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"],
                                            len(p.queries))
-        try:
-            # inside try: any failure (incl. stacking) must fan out to the
-            # futures — an escaped exception would leave every request in
-            # the batch awaiting forever
-            q = np.stack(p.queries)
-            results = await asyncio.to_thread(
-                lambda: self.engine.search(
-                    index, q, k=k, ef=ef,
-                    include_metadata=include_metadata,
-                    filter=filt, text_query=text_query, alpha=alpha,
-                    graph_root=graph_root, graph_depth=graph_depth,
-                    graph_relation=graph_relation))
-        except Exception as e:  # noqa: BLE001 — fan the error out
-            for f in p.futures:
-                if not f.done():
-                    f.set_exception(e)
-            return
+        started = []
+
+        def search():
+            started.append(tracing.now())
+            return self.engine.search(
+                index, q, k=k, ef=ef, include_metadata=include_metadata,
+                filter=filt, text_query=text_query, alpha=alpha,
+                graph_root=graph_root, graph_depth=graph_depth,
+                graph_relation=graph_relation)
+
+        with tracing.span("batcher.batch", n=len(p.queries)) as batch:
+            try:
+                # inside try: any failure (incl. stacking) must fan out to
+                # the futures — an escaped exception would leave every
+                # request in the batch awaiting forever
+                q = np.stack(p.queries)
+                results = await asyncio.to_thread(search)
+            except Exception as e:  # noqa: BLE001 — fan the error out
+                for f in p.futures:
+                    if not f.done():
+                        f.set_exception(e)
+                return
+            finally:
+                at = started[0] if started else None
+                for w in p.waits:
+                    w.end(at, link=batch.id)
         for f, hits in zip(p.futures, results):
             if not f.done():
                 f.set_result(hits)

@@ -25,6 +25,7 @@ from typing import Any, Optional
 import numpy as np
 from aiohttp import web
 
+from .. import tracing
 from ..engine.engine import Engine
 from ..engine import fusion
 from . import auth as authlib
@@ -51,6 +52,34 @@ def _status_of(exc: Exception) -> int:
     if isinstance(exc, ValueError):
         return 400
     return 500
+
+
+def batch_queries(b: dict) -> np.ndarray:
+    """A batched search's queries as float32 [B, D]: `query_vectors`, or
+    `query_vectors_b64` with `query_shape`."""
+    qvs = b.get("query_vectors")
+    if b.get("query_vectors_b64"):
+        # binary query ingestion: base64 raw little-endian f32, row-major
+        # [B, D] (query_shape) — skips JSON float parsing for large
+        # batches (65k numbers per 512x128 request otherwise)
+        raw = base64.b64decode(b["query_vectors_b64"])
+        shape = b.get("query_shape")
+        if not shape or len(shape) != 2:
+            raise ValueError("query_shape [B, D] required with "
+                             "query_vectors_b64")
+        qvs = np.frombuffer(raw, dtype="<f4").reshape(shape)
+    return np.asarray(qvs, np.float32)
+
+
+def _all_threads() -> dict:
+    """torch.profiler's option to record the ranges of every thread, not
+    only the profiling one's, where this torch has it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
 
 
 def make_app(engine: Engine, *,
@@ -85,10 +114,12 @@ def make_app(engine: Engine, *,
 
     @web.middleware
     async def mw_metrics(request, handler):
-        t0 = time.monotonic()
-        resp = await handler(request)
+        # the request's root span: it assigns the request id that every
+        # span of the request carries, and times the request for /metrics
+        with tracing.span("http.request") as sp:
+            resp = await handler(request)
         metrics.observe(request.method, request.path, resp.status,
-                        time.monotonic() - t0)
+                        sp.seconds)
         return resp
 
     @web.middleware
@@ -124,6 +155,10 @@ def make_app(engine: Engine, *,
     async def body_of(request) -> dict:
         if "json" in request:
             return request["json"]
+        with tracing.span("http.body"):
+            return await _read_json(request)
+
+    async def _read_json(request) -> dict:
         try:
             raw = await request.read()
             # Thread the parse only when it is actually expensive: many
@@ -425,23 +460,15 @@ def make_app(engine: Engine, *,
         (text-only BM25); batched via query_vectors/query_vectors_b64."""
         b = await body_of(request)
         name = b["index_name"]
-        qvs = b.get("query_vectors")
-        if b.get("query_vectors_b64"):
-            # binary query ingestion: base64 raw little-endian f32, row-major
-            # [B, D] (query_shape) — skips JSON float parsing for large
-            # batches (65k numbers per 512x128 request otherwise)
-            raw = base64.b64decode(b["query_vectors_b64"])
-            shape = b.get("query_shape")
-            if not shape or len(shape) != 2:
-                raise ValueError("query_shape [B, D] required with "
-                                 "query_vectors_b64")
-            qvs = np.frombuffer(raw, dtype="<f4").reshape(shape)
-        if qvs is not None and len(qvs):
+        q = None
+        if b.get("query_vectors_b64") or b.get("query_vectors") is not None:
+            with tracing.span("http.decode"):
+                q = batch_queries(b)
+        if q is not None and len(q):
             # batched search: one request carries [B, D] queries and gets
             # per-query hit lists back — the serving-throughput API the
             # per-query reference HTTP surface lacks (BENCHMARKS.md:7-15
             # measures sequential single-query clients)
-            q = np.asarray(qvs, np.float32)
             gf = b.get("graph_filter") or {}
             columnar = bool(b.get("columnar"))
             # wire="b64": scores/distances leave as base64 raw f32 instead
@@ -465,6 +492,10 @@ def make_app(engine: Engine, *,
                     graph_relation=gf.get("relation"),
                     include_metadata=bool(b.get("hydrate")),
                     columnar="np" if wire_b64 else columnar)
+                with tracing.span("http.encode"):
+                    return encode(hits)
+
+            def encode(hits) -> bytes:
                 if columnar:
                     if wire_b64 and isinstance(hits.get("scores"),
                                                np.ndarray):
@@ -526,8 +557,10 @@ def make_app(engine: Engine, *,
             # coalesce concurrent equal-kwarg requests into one device
             # batch — shared filter mask / BM25 pass / graph BFS computed
             # once per batch (server/batcher.py)
+            with tracing.span("http.decode"):
+                qv = np.asarray(qv, np.float32)
             res = await batcher.search(
-                name, np.asarray(qv, np.float32), int(b.get("k", 10)),
+                name, qv, int(b.get("k", 10)),
                 b.get("ef_search") or None, bool(b.get("hydrate")),
                 filter=b.get("filter") or None,
                 text_query=b.get("text_query") or None,
@@ -535,8 +568,9 @@ def make_app(engine: Engine, *,
                 graph_root=gf.get("root_id"),
                 graph_depth=int(gf.get("depth", 2)),
                 graph_relation=gf.get("relation"))
-            return _json({"results": hits_to_results(res),
-                          "ids": [h["id"] for h in res]})
+            with tracing.span("http.encode"):
+                return _json({"results": hits_to_results(res),
+                              "ids": [h["id"] for h in res]})
         hits = await asyncio.to_thread(
             lambda: engine.search(
                 name, np.asarray(qv, np.float32), k=int(b.get("k", 10)),
@@ -556,8 +590,9 @@ def make_app(engine: Engine, *,
                 edges = engine.get_edges(name, h["id"])
                 h["edges"] = [e for e in edges
                               if not rels or e["relation"] in rels]
-        return _json({"results": hits_to_results(res),
-                      "ids": [h["id"] for h in res]})
+        with tracing.span("http.encode"):
+            return _json({"results": hits_to_results(res),
+                          "ids": [h["id"] for h in res]})
 
     async def vector_search_scores(request):
         b = await body_of(request)
@@ -1155,8 +1190,10 @@ def make_app(engine: Engine, *,
 
         def run():
             # started and stopped in this task's thread; the card's
-            # activity is traced process-wide
-            prof = torch.profiler.profile(activities=acts)
+            # activity is traced process-wide, the program's ranges
+            # (kektordb_tpu_torch/tracing.py) on every thread
+            prof = torch.profiler.profile(activities=acts,
+                                          **_all_threads())
             prof.start()
             time.sleep(min(seconds, 30))
             prof.stop()

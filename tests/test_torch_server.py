@@ -346,20 +346,23 @@ def test_debug_profile_writes_torch_trace(srv):
     r = requests.post(srv.base + "/debug/profile?seconds=0.3")
     assert r.status_code == 202, r.text
     out = r.json()
-    for _ in range(5):
+    # search until the profile is done, so that some search runs while
+    # the profiler is on however late its thread starts
+    deadline = time.time() + 60
+    while time.time() < deadline:
         requests.post(srv.base + "/vector/actions/search",
                       json={"index_name": "PROF",
                             "query_vector": [1.0, 0.0, 0.0], "k": 1})
-    deadline = time.time() + 60
-    while time.time() < deadline:
         t = requests.get(srv.base + "/system/tasks/" + out["task_id"]).json()
         if t["status"] in ("completed", "failed"):
             break
-        time.sleep(0.1)
     assert t["status"] == "completed", t
     path = os.path.join(out["trace_dir"], "trace.json")
     with open(path) as f:
         trace = json.load(f)
     assert "traceEvents" in trace
+    # the program's spans are named ranges of the trace (tracing.py)
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"http.request", "engine.search"} <= names
     assert torch.cuda.is_available() or all(
         e.get("cat") != "kernel" for e in trace["traceEvents"])
