@@ -7,6 +7,9 @@
 //   * slice-by-8 CRC32 (zlib-compatible) and the journal frame scanner
 //     that the port's replay runs (persist/aof.read_frames)
 //   * the "KTNA" arena spill file: a 64-byte header, then f32 rows
+//   * a base64 decoder (the port's own entry, not in the JAX package's
+//     library): the batched search's `query_vectors_b64`, decoded straight
+//     from the request body (server/http.py)
 //
 // The frame scanner differs from the JAX package's in two ways: it takes a
 // start offset and an output capacity and says where it stopped, so the
@@ -294,6 +297,74 @@ int kn_arena_read(const char* path, int64_t row_start, int64_t count,
   }
   std::fclose(f);
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// base64: the standard alphabet (A-Z a-z 0-9 + /), a length that is a
+// multiple of 4, '=' only as the last one or two characters
+// ---------------------------------------------------------------------------
+
+// b64_d[j][c]: character c at position j of a quad, shifted to where its six
+// bits land in the quad's three bytes read as a little-endian u32; a byte
+// outside the alphabet sets bit 24, so one test of the OR of a quad's four
+// entries refuses it.
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "the base64 tables assume a little-endian host");
+static const uint32_t B64_BAD = 0x01FFFFFFu;
+static uint32_t b64_d[4][256];
+static std::atomic<bool> b64_ready{false};
+
+static void b64_init() {
+  static std::atomic<bool> building{false};
+  if (b64_ready.load(std::memory_order_acquire)) return;
+  if (building.exchange(true)) {
+    while (!b64_ready.load(std::memory_order_acquire)) {}
+    return;
+  }
+  static const char abc[] =
+      "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789+/";
+  for (int j = 0; j < 4; ++j)
+    for (int c = 0; c < 256; ++c) b64_d[j][c] = B64_BAD;
+  for (uint32_t v = 0; v < 64; ++v) {
+    uint8_t c = (uint8_t)abc[v];
+    b64_d[0][c] = v << 2;
+    b64_d[1][c] = (v >> 4) | ((v & 0xF) << 12);
+    b64_d[2][c] = ((v >> 2) << 8) | ((v & 0x3) << 22);
+    b64_d[3][c] = v << 16;
+  }
+  b64_ready.store(true, std::memory_order_release);
+}
+
+// Decodes src[0:n) into out, which holds n / 4 * 3 bytes. Returns the bytes
+// decoded, or -1 where src is not such a span: a byte outside the alphabet
+// (a backslash, a quote, a newline, the URL-safe '-' and '_' included), '='
+// anywhere but the last one or two places, or n not a multiple of 4. The
+// bits a padded quad leaves over are ignored, as Python's base64 does.
+int64_t kn_b64_decode(const uint8_t* src, int64_t n, uint8_t* out) {
+  b64_init();
+  if (n < 0 || n % 4) return -1;
+  if (n == 0) return 0;
+  const int64_t quads = n / 4;
+  uint32_t bad = 0;
+  // every quad but the last stores four bytes, the fourth overwritten by
+  // the next quad's first
+  for (int64_t i = 0; i + 1 < quads; ++i) {
+    const uint8_t* s = src + 4 * i;
+    uint32_t x = b64_d[0][s[0]] | b64_d[1][s[1]] | b64_d[2][s[2]] |
+                 b64_d[3][s[3]];
+    bad |= x;
+    std::memcpy(out + 3 * i, &x, 4);
+  }
+  if (bad & 0xFF000000u) return -1;
+  const uint8_t* s = src + 4 * (quads - 1);
+  uint8_t* o = out + 3 * (quads - 1);
+  int pads = s[3] != '=' ? 0 : s[2] != '=' ? 1 : 2;
+  uint32_t x = b64_d[0][s[0]] | b64_d[1][s[1]] |
+               (pads < 2 ? b64_d[2][s[2]] : 0) |
+               (pads < 1 ? b64_d[3][s[3]] : 0);
+  if (x & 0xFF000000u) return -1;
+  for (int j = 0; j < 3 - pads; ++j) o[j] = (uint8_t)(x >> (8 * j));
+  return 3 * quads - pads;
 }
 
 }  // extern "C"

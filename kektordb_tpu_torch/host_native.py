@@ -1,8 +1,10 @@
 """The port's host runtime: the counterpart of the JAX package's
 `kektordb_tpu/native/__init__.py`, bound to its own copy of the C++
-source, `csrc/host/kektor_native.cpp`, with the same C entries and the
-same public names (`crc32`, `scan_frames`, `bruteforce_topk`,
-`arena_write`, `arena_read`).
+source, `csrc/host/kektor_native.cpp`, with the JAX package's C entries
+and public names (`crc32`, `scan_frames`, `bruteforce_topk`,
+`arena_write`, `arena_read`), and one entry of the port's own:
+`b64decode`, which decodes the batched search's base64 queries straight
+from the request body (`server/http.py`).
 
 The library is built by `g++` at first use into
 `build/kektordb_tpu_torch/host/<hash>/` beside the package, keyed by a hash
@@ -21,7 +23,11 @@ pointer, not copied, and frames come back as numpy arrays.
 
 Plain versions, which the tests hold the library to: `persist/aof.
 scan_frames` for the scanner, `zlib.crc32` for `crc32`,
-`bruteforce_topk_plain` and `arena_write_plain` / `arena_read_plain`.
+`bruteforce_topk_plain`, `arena_write_plain` / `arena_read_plain`, and
+`base64.b64decode(..., validate=True)` for `b64decode`.
+
+`ctypes.CDLL` releases the interpreter's lock for every call, so other
+threads run Python while an entry runs.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ SIGNATURES = {
     "kn_scan_frames": (_L, [_P, _L, _L, _L] + [_P] * 6),
     "kn_arena_write": (_I, [ctypes.c_char_p, _P, _L, _L]),
     "kn_arena_read": (_I, [ctypes.c_char_p, _L, _L, _P, _P, _P]),
+    "kn_b64_decode": (_L, [_P, _L, _P]),
 }
 _ARENA_ERRORS = {-1: "cannot open the file", -2: "bad header or magic",
                  -3: "rows beyond the file's", -4: "short read or write"}
@@ -308,3 +315,23 @@ def arena_read_plain(path, row_start: int = 0,
     if len(body) != count * dim * 4:
         raise OSError(f"arena read {path}: short read")
     return np.frombuffer(body, np.float32).reshape(count, dim).copy()
+
+
+# --------------------------------------------------------------- base64
+
+def b64decode(buf, start: int = 0, end: int | None = None
+              ) -> np.ndarray | None:
+    """The bytes that buf[start:end] encodes in standard base64, as a
+    uint8 array, read in place from `buf` (bytes-like); None where that
+    span is not standard base64: a byte outside A-Z a-z 0-9 + /, '='
+    anywhere but the last one or two places, or a length that is not a
+    multiple of 4. The bits a padded quad leaves over are ignored, as
+    `base64.b64decode` does."""
+    view = np.frombuffer(buf, np.uint8)
+    end = view.size if end is None else end
+    if not 0 <= start <= end <= view.size:
+        raise ValueError(f"span [{start}, {end}) outside a buffer of "
+                         f"{view.size} bytes")
+    out = np.empty((end - start) // 4 * 3, np.uint8)
+    n = load().kn_b64_decode(_ptr(view) + start, end - start, _ptr(out))
+    return None if n < 0 else out[:n]

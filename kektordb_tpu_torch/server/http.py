@@ -25,7 +25,7 @@ from typing import Any, Optional
 import numpy as np
 from aiohttp import web
 
-from .. import tracing
+from .. import host_native, tracing
 from ..engine.engine import Engine
 from ..engine import fusion
 from . import auth as authlib
@@ -54,15 +54,57 @@ def _status_of(exc: Exception) -> int:
     return 500
 
 
+B64_KEY = b'"query_vectors_b64"'
+# stands for the query_vectors_b64 value in a batched search's skeleton:
+# printable, no quote or backslash, two copies cannot overlap, and no JSON
+# token starts with "<"
+B64_HOLE = "<query_vectors_b64>"
+
+
+def b64_skeleton(raw: bytes, at: int) -> tuple[dict, int, int] | None:
+    """A batched search's body parsed without its `query_vectors_b64`
+    value, and where that value lies: (the object, start, end) with the
+    value raw[start:end], the key's text found at `at`.
+
+    The value is taken to run from the first quote after the key to the
+    next quote, and B64_HOLE is parsed in its place, a skeleton of a few
+    hundred bytes. None unless the skeleton has no backslash, holds
+    B64_HOLE once and parses to an object whose `query_vectors_b64` is
+    B64_HOLE. Then every string of the skeleton is its own text, so the
+    one B64_HOLE is that value, and `raw` parses to the same object with
+    raw[start:end] in place of B64_HOLE wherever that span holds only
+    base64's characters, which `host_native.b64decode` checks."""
+    start = raw.find(b'"', at + len(B64_KEY)) + 1
+    end = raw.find(b'"', start) if start else -1
+    if end < 0:
+        return None
+    hole = B64_HOLE.encode()
+    skeleton = raw[:start] + hole + raw[end:]
+    if b"\\" in skeleton or skeleton.count(hole) != 1:
+        return None
+    try:
+        # as UTF-8 text: a body json.loads would read in another encoding
+        # does not parse so
+        b = json.loads(skeleton.decode())
+    except (ValueError, RecursionError):
+        return None
+    if not isinstance(b, dict) or b.get("query_vectors_b64") != B64_HOLE:
+        return None
+    return b, start, end
+
+
 def batch_queries(b: dict) -> np.ndarray:
     """A batched search's queries as float32 [B, D]: `query_vectors`, or
     `query_vectors_b64` with `query_shape`."""
     qvs = b.get("query_vectors")
-    if b.get("query_vectors_b64"):
+    b64 = b.get("query_vectors_b64")
+    if b64:
         # binary query ingestion: base64 raw little-endian f32, row-major
         # [B, D] (query_shape) — skips JSON float parsing for large
-        # batches (65k numbers per 512x128 request otherwise)
-        raw = base64.b64decode(b["query_vectors_b64"])
+        # batches (65k numbers per 512x128 request otherwise). A
+        # memoryview holds the bytes the host runtime already decoded
+        # from the request body (make_app's search_body); JSON gives none
+        raw = b64 if isinstance(b64, memoryview) else base64.b64decode(b64)
         shape = b.get("query_shape")
         if not shape or len(shape) != 2:
             raise ValueError("query_shape [B, D] required with "
@@ -89,6 +131,7 @@ def make_app(engine: Engine, *,
              compiler=None,
              rag=None,
              vectorizers=None) -> web.Application:
+    host_native.load()      # built here, so that set-up pays the build
     metrics = Metrics()
     tasks = TaskManager()
     auth_svc = authlib.AuthService(engine.kv) if token else None
@@ -156,11 +199,46 @@ def make_app(engine: Engine, *,
         if "json" in request:
             return request["json"]
         with tracing.span("http.body"):
-            return await _read_json(request)
+            return await _parse_json(await _read_body(request))
 
-    async def _read_json(request) -> dict:
+    async def search_body(request) -> dict:
+        """vector_search's body. A `query_vectors_b64` value that
+        `b64_skeleton` finds and that is standard base64 is decoded by the
+        host runtime straight from the raw body, with the interpreter's
+        lock released, and its bytes stand in the parsed object as a
+        memoryview; any other body is parsed whole, as `body_of` does,
+        and gives the same object. Counts the bodies with the key that
+        took each path (`http.queries_b64.native` / `.fallback`); a body
+        the auth middleware parsed already takes neither."""
+        if "json" in request:
+            return request["json"]
+        with tracing.span("http.body"):
+            raw = await _read_body(request)
+            at = raw.find(B64_KEY)
+            cut = b64_skeleton(raw, at) if at >= 0 else None
+            if cut is None:
+                if at >= 0:
+                    tracing.count("http.queries_b64.fallback")
+                return await _parse_json(raw)
+        b, start, end = cut
+        with tracing.span("http.decode"):
+            data = host_native.b64decode(raw, start, end)
+        if data is not None:
+            tracing.count("http.queries_b64.native")
+            b["query_vectors_b64"] = memoryview(data)
+            return b
+        tracing.count("http.queries_b64.fallback")
+        with tracing.span("http.body"):
+            return await _parse_json(raw)
+
+    async def _read_body(request) -> bytes:
         try:
-            raw = await request.read()
+            return await request.read()
+        except Exception as e:
+            raise ValueError(f"invalid JSON body: {e}") from e
+
+    async def _parse_json(raw: bytes) -> dict:
+        try:
             # Thread the parse only when it is actually expensive: many
             # JSON VALUES (batched query_vectors: 100k+ floats), not many
             # bytes — a b64-wire body is one ~700KB string that parses in
@@ -458,7 +536,7 @@ def make_app(engine: Engine, *,
     async def vector_search(request):
         """Search: query_vector | query_text (embedded) | text_query alone
         (text-only BM25); batched via query_vectors/query_vectors_b64."""
-        b = await body_of(request)
+        b = await search_body(request)
         name = b["index_name"]
         q = None
         if b.get("query_vectors_b64") or b.get("query_vectors") is not None:

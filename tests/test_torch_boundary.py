@@ -110,6 +110,8 @@ import numpy as np
 from kektordb_tpu_torch import host_native as hn
 from kektordb_tpu_torch.engine import Engine, EngineConfig
 assert hn.crc32(b"hello") == 907060870
+assert hn.b64decode(b'"QUJDRA=="', 1, 9).tobytes() == b"ABCD"
+assert hn.b64decode(b"QUJ\\x5c") is None      # a backslash
 X = np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32)
 d, i = hn.bruteforce_topk(X[:3], X, 2)
 assert i[:, 0].tolist() == [0, 1, 2], i

@@ -16,6 +16,10 @@ source `csrc/host/kektor_native.cpp`) against the JAX package's
   port's `ops/distance.brute_force_topk`, ties ordered by (distance, row).
 * Arena files cross between the packages byte for byte; bad files raise.
 * The distance entries bound directly, against numpy.
+* `b64decode`, the port's own entry, against `base64.b64decode(...,
+  validate=True)` on payloads of every length mod 3, inside a larger
+  buffer too; every byte outside the standard alphabet, a misplaced `=`
+  and a length that is not a multiple of 4 are refused.
 * No fallback: without g++, or after a failed build, the library raises.
 * The reference's first-use build loses its library to a concurrent
   writer for the rest of the process; the port's tests load a private
@@ -23,6 +27,7 @@ source `csrc/host/kektor_native.cpp`) against the JAX package's
   survives four processes building at once.
 """
 
+import base64
 import contextlib
 import ctypes
 import logging
@@ -443,6 +448,61 @@ def test_arena_write_raises_on_an_unwritable_path(tmp_path):
         hn.arena_write(str(tmp_path / "a.ktna"), np.ones(3, np.float32))
 
 
+# ---------------------------------------------------------------- base64
+
+B64_ALPHABET = frozenset(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+                         b"0123456789+/")
+B64_CASES = (
+    [("payload", n) for n in (0, 1, 2, 3, 4, 5, 6, 47, 48, 49, 4097, 12288)]
+    + [("inside", n) for n in (0, 7, 3 * 4096 + 2)]
+    + [("bytes outside the alphabet", None),
+       ("misplaced =", [b"=QUJD", b"Q=JD", b"QU=D", b"QQ=A", b"====",
+                        b"Q===", b"QQ==QUJD", b"QUJD=QUJ", b"QQ===AAA"]),
+       ("length", [b"Q", b"QU", b"QUJ", b"QUJDR", b"QQ=", b"QUJD=",
+                   b"QUJDQQ=", b"QUJDQUJDQ"])])
+
+
+@pytest.mark.parametrize("kind, arg", B64_CASES,
+                         ids=[f"{k}-{i}" for i, (k, _) in
+                              enumerate(B64_CASES)])
+def test_b64decode_equals_python_and_refuses_the_rest(kind, arg):
+    if kind == "payload":       # 0, 1 or 2 padding characters by n % 3
+        data = np.random.default_rng(arg).integers(
+            0, 256, arg, np.uint8).tobytes()
+        text = base64.b64encode(data)
+        assert text.count(b"=") == (3 - arg % 3) % 3
+        out = hn.b64decode(text)
+        assert out.dtype == np.uint8
+        assert out.tobytes() == base64.b64decode(text, validate=True)
+        return
+    if kind == "inside":        # a span of a larger buffer, read in place
+        data = np.random.default_rng(arg).integers(
+            0, 256, arg, np.uint8).tobytes()
+        text = base64.b64encode(data)
+        buf = b'{"q": "' + text + b'"}'
+        out = hn.b64decode(buf, 7, 7 + len(text))
+        assert out.tobytes() == data
+        assert hn.b64decode(buf) is None
+        with pytest.raises(ValueError):
+            hn.b64decode(buf, 7, len(buf) + 1)
+        return
+    if kind == "bytes outside the alphabet":
+        # each byte at each place of a whole quad and of the padded tail
+        good = bytearray(b"QUJDREVGRw==")
+        assert hn.b64decode(bytes(good)).tobytes() == b"ABCDEFG"
+        refused = 0
+        for byte in set(range(256)) - B64_ALPHABET - {ord("=")}:
+            for at in (0, 1, 2, 3, 8, 9):
+                text = bytearray(good)
+                text[at] = byte
+                assert hn.b64decode(bytes(text)) is None, (byte, at)
+                refused += 1
+        assert refused == 191 * 6
+        return
+    for text in arg:            # misplaced '=', or a length not 4k
+        assert hn.b64decode(text) is None, text
+
+
 # ------------------------------------------------ the entries bound directly
 
 def _call(name, q, rows, out):
@@ -511,6 +571,8 @@ def test_bruteforce_topk_at_k0(metric):
 
 def test_every_entry_is_typed():
     lib = hn.load()
+    # a CDLL, not a PyDLL: every call releases the interpreter's lock
+    assert type(lib) is ctypes.CDLL
     for name, (res, args) in hn.SIGNATURES.items():
         fn = getattr(lib, name)
         assert fn.argtypes == args and fn.restype == res
