@@ -203,7 +203,9 @@ class Engine:
                      serve_proj_rerank: int = 128,
                      _journal: bool = True) -> None:
         """VCREATE. Duplicate names are an error. Kinds "hnsw" (serve_mode
-        "auto", "scan" or "beam"), "flat" and "host". serve_proj_dim=None
+        "auto", "scan" or "beam"), "flat" and "host". Of the serve modes
+        only "beam" serves reads from the graph; "auto" links it on insert
+        and reads from the scan, as "scan" does. serve_proj_dim=None
         is unset: off for hnsw, "auto" for a host arena (its projected
         mirror switches on once the arena outgrows one streamed chunk); an
         explicit 0 forces the full-dimension sweep."""

@@ -8,7 +8,10 @@ and read by index/hnsw_kernels.py.
 
 serve_mode: "auto" (the default) links the graph on every insert and
 serves queries from the fused scan (ops/scan.py); "scan" never links;
-"beam" serves from the graph's beam search.
+"beam" serves from the graph's beam search. The graph's build records the
+spans `graph.link` (a chunk), `graph.select` and `graph.upper` and the
+counter `graph.linked_rows`; the beam read `index.descend`, `index.beam`
+and the `beam.*` counters (tracing.py).
 
 `serve_proj_dim` = p > 0 serves the scan from a cached [cap, p] bf16 PCA
 projection of the arena, then re-ranks serve_proj_rerank candidates in
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import device as devlib
+from .. import tracing
 from ..ops import distance as dist
 from ..ops import quantize as quant
 from ..ops import scan as scanlib
@@ -377,6 +381,7 @@ class HNSWIndex:
             else self.config.ef_construction
         for i in range(0, len(ext_ids), C):
             self._commit(ext_ids[i:i + C], vectors[i:i + C], ef)
+        self._adopt_unreachable()
         if fast:
             self.needs_refine = True
 
@@ -414,13 +419,17 @@ class HNSWIndex:
             take = self._unlinked[:C]
             self._unlinked = self._unlinked[C:]
             rows, lvls = np.array(take, np.int32).T
-            self.state = K.link_chunk(
-                self.state, self._rows(rows), self._rows(lvls),
-                metric=self.metric, ef=self.config.ef_construction,
-                m=self.config.m, intra_k=self.config.intra_k,
-                dual=bool(self._deleted_rows), expand=self.config.expand)
-            self._register_upper([(r, lv) for r, lv in take if lv >= 1])
+            with tracing.span("graph.link", n=len(take)):
+                self.state = K.link_chunk(
+                    self.state, self._rows(rows), self._rows(lvls),
+                    metric=self.metric, ef=self.config.ef_construction,
+                    m=self.config.m, intra_k=self.config.intra_k,
+                    dual=bool(self._deleted_rows), expand=self.config.expand)
+                self._register_upper([(r, lv) for r, lv in take if lv >= 1])
+            tracing.count("graph.linked_rows", len(take))
             drained += len(take)
+        if drained:
+            self._adopt_unreachable()
 
     def flush(self) -> None:
         """Stage and link everything."""
@@ -436,14 +445,30 @@ class HNSWIndex:
         self._grow_for(n)
         rows = np.fromiter((self.ids.alloc(e) for e in ext_ids), np.int32, n)
         levels = self._sample_levels(n)
-        enc, norms = self._encode(vectors)
-        self.state = K.insert_chunk(
-            self.state, self._rows(rows), enc, norms, self._rows(levels),
-            metric=self.metric, ef=ef, m=self.config.m,
-            intra_k=self.config.intra_k, dual=bool(self._deleted_rows),
-            expand=self.config.expand)
-        self._register_upper([(int(r), int(lv)) for r, lv in
-                              zip(rows, levels) if lv >= 1])
+        with tracing.span("graph.link", n=n):
+            enc, norms = self._encode(vectors)
+            self.state = K.insert_chunk(
+                self.state, self._rows(rows), enc, norms, self._rows(levels),
+                metric=self.metric, ef=ef, m=self.config.m,
+                intra_k=self.config.intra_k, dual=bool(self._deleted_rows),
+                expand=self.config.expand)
+            self._register_upper([(int(r), int(lv)) for r, lv in
+                                  zip(rows, levels) if lv >= 1])
+        tracing.count("graph.linked_rows", n)
+
+    def _adopt_unreachable(self) -> None:
+        """After a pass of links or a rewrite of rows (refine, vacuum):
+        every linked row is linked from a row that the entry reaches
+        (`K.adopt_unreachable`), so that a beam can find it; the counter
+        `graph.adopted_rows` counts the rows that needed it."""
+        n = self.ids.capacity_used
+        linked = self.state.levels[:n] >= 0
+        if self._unlinked:
+            linked[self._rows(np.array([r for r, _ in self._unlinked]))
+                   .long()] = False
+        adopted = K.adopt_unreachable(self.state, linked, self.metric)
+        if adopted:
+            tracing.count("graph.adopted_rows", adopted)
 
     def _register_upper(self, ups: list[tuple[int, int]]) -> None:
         """Insert (row, level >= 1) nodes into the upper exact-KNN
@@ -453,9 +478,11 @@ class HNSWIndex:
         unodes = np.array([r for r, _ in ups], np.int32)
         uslots = np.array([self._alloc_up_slot() for _ in ups], np.int32)
         self._max_level = max(self._max_level, max(lv for _, lv in ups))
-        self.state = K.update_upper(self.state, self._rows(unodes),
-                                    self._rows(uslots), metric=self.metric,
-                                    top_level=self._max_level)
+        with tracing.span("graph.upper", n=len(ups)):
+            self.state = K.update_upper(self.state, self._rows(unodes),
+                                        self._rows(uslots),
+                                        metric=self.metric,
+                                        top_level=self._max_level)
 
     def _alloc_up_slot(self) -> int:
         if self._up_free:
@@ -527,8 +554,8 @@ class HNSWIndex:
 
     def refine_step(self, rows: Optional[np.ndarray] = None) -> None:
         """One refine batch: the given rows, or the next refine_batch live
-        rows from the cursor."""
-        ef = self.config.refine_ef or self.config.ef_construction
+        rows from the cursor; then the rows the rewrite left unreachable
+        are linked (`_adopt_unreachable`)."""
         B = self.config.refine_batch
         if rows is None:
             live = self._live_rows()
@@ -537,9 +564,14 @@ class HNSWIndex:
             start = self._refine_cursor % live.size
             rows = live[(start + np.arange(min(B, live.size))) % live.size]
             self._refine_cursor = int((start + B) % max(live.size, 1))
-        self.state = K.refine_chunk(self.state, self._rows(rows[:B]),
-                                    metric=self.metric, ef=ef,
-                                    m_out=2 * self.config.m)
+        self._refine(rows[:B])
+        self._adopt_unreachable()
+
+    def _refine(self, rows: np.ndarray) -> None:
+        self.state = K.refine_chunk(
+            self.state, self._rows(rows), metric=self.metric,
+            ef=self.config.refine_ef or self.config.ef_construction,
+            m_out=2 * self.config.m)
 
     def turbo_refine(self, passes: int = 1) -> None:
         """Refine every live row (after a bulk import) and clear the
@@ -553,7 +585,8 @@ class HNSWIndex:
         B = self.config.refine_batch
         for _ in range(passes):
             for i in range(0, live.size, B):
-                self.refine_step(live[i:i + B])
+                self._refine(live[i:i + B])
+        self._adopt_unreachable()
         self.needs_refine = False
 
     def vacuum(self) -> int:
@@ -575,7 +608,7 @@ class HNSWIndex:
             aff_rows = torch.nonzero(affected)[:, 0].int().cpu().numpy()
             B = self.config.refine_batch
             for i in range(0, aff_rows.size, B):
-                self.refine_step(aff_rows[i:i + B])
+                self._refine(aff_rows[i:i + B])
         dead = np.fromiter(self._deleted_rows, np.int32)
         dead_slots = self.state.up_of.cpu().numpy()[dead]
         dead_slots = dead_slots[dead_slots >= 0].astype(np.int32)
@@ -596,6 +629,8 @@ class HNSWIndex:
             self.ids.row_to_ext[r] = None
         self._up_free.extend(int(s) for s in dead_slots)
         self._deleted_rows.clear()
+        if self.config.serve_mode != "scan":
+            self._adopt_unreachable()
         return n
 
     def _live_rows(self) -> np.ndarray:
@@ -664,9 +699,9 @@ class HNSWIndex:
         allow = self._allow_to_device(allow_rows)
         if use_scan:
             d, rows = self._scan_search_device(q, qn, B, k, allow)
+            d_np, i_np = d.cpu().numpy(), rows.cpu().numpy()
         else:
-            d, rows = self._beam_search_device(q, qn, k, ef, allow)
-        d_np, i_np = d.cpu().numpy(), rows.cpu().numpy()
+            d_np, i_np = self._beam_search_traced(q, qn, k, ef, allow)
         if self._serve_quantized and self.metric == dist.L2 and (
                 not use_scan or self.config.int8_symmetric):
             # the beam and symmetric int8 scan score L2 in the quantized
@@ -675,12 +710,35 @@ class HNSWIndex:
             d_np = d_np * (quantum * quantum)
         return d_np, i_np
 
+    def _beam_search_traced(self, q, qn, k: int, ef: Optional[int],
+                            allow) -> tuple[np.ndarray, np.ndarray]:
+        """The beam read on the host: the span `index.descend` over the
+        upper layers' descent, `index.beam` over the level-0 beam through
+        the copy back, and the counters `beam.searches`,
+        `beam.iterations`, `beam.done_checks` and `beam.scored` (summed
+        on the device, read once with the answers)."""
+        B = q.shape[0]
+        with tracing.span("index.descend", n=B):
+            seeds = K.descend(self.state, q, qn, self.metric)
+        stats = K.BeamStats()
+        with tracing.span("index.beam", n=B):
+            d, rows = self._beam_search_device(q, qn, k, ef, allow,
+                                               seeds=seeds, stats=stats)
+            d_np, i_np = d.cpu().numpy(), rows.cpu().numpy()
+            scored = int(stats.scored)
+        tracing.count("beam.searches")
+        tracing.count("beam.iterations", stats.iterations)
+        tracing.count("beam.done_checks", stats.done_checks)
+        tracing.count("beam.scored", scored)
+        return d_np, i_np
+
     def _beam_search_device(self, q, qn, k: int, ef: Optional[int],
-                            allow):
+                            allow, seeds=None, stats=None):
         """Beam serving: ef boost for a fast-built graph, and the dual pool
         when a filter or a deletion makes rows ineligible. The batch runs
         as it is: eager torch has no compiled program per batch size that
-        padding would let requests share."""
+        padding would let requests share. `seeds` and `stats` go to
+        `beam_search`."""
         ef = ef or self.config.ef_search
         if self.needs_refine:
             ef = min(max(ef, 80), 200)
@@ -688,7 +746,7 @@ class HNSWIndex:
         d, rows = K.beam_search(
             self.state, q, qn, metric=self.metric, ef=ef, allow=allow,
             dual=allow is not None or bool(self._deleted_rows),
-            expand=self.config.serve_expand)
+            expand=self.config.serve_expand, seeds=seeds, stats=stats)
         return d[:, :k], rows[:, :k]
 
     def search_device(self, queries: np.ndarray, k: int, *, allow_rows=None):

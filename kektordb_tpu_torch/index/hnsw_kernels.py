@@ -41,8 +41,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import distance as dist
 
 INF = float("inf")
@@ -52,6 +54,21 @@ I32_MAX = 2 ** 31 - 1
 # often (each ask is a host-device synchronisation)
 CHECK_EVERY = 4
 MAX_HOPS = 64          # descent hops per level
+
+
+class BeamStats:
+    """What one `beam_search` call did, for the caller's counters: the
+    loop's iterations, its host-device synchronisations (each test of
+    whether every query is done), and after the call `scored`, a 0-dim
+    device tensor of the neighbour ids it scored, summed on the device
+    so that reading it costs no synchronisation inside the loop."""
+
+    __slots__ = ("iterations", "done_checks", "scored")
+
+    def __init__(self):
+        self.iterations = 0
+        self.done_checks = 0
+        self.scored: Optional[torch.Tensor] = None
 
 
 class GraphState(NamedTuple):
@@ -279,7 +296,9 @@ def _filter_seeds(state: GraphState, q, qn, metric, allow, seeds):
 def beam_search(state: GraphState, q: torch.Tensor,
                 qn: Optional[torch.Tensor], *, metric: str, ef: int,
                 expand: int = 4, allow: Optional[torch.Tensor] = None,
-                exclude: Optional[torch.Tensor] = None, dual: bool = False
+                exclude: Optional[torch.Tensor] = None, dual: bool = False,
+                seeds: Optional[torch.Tensor] = None,
+                stats: Optional[BeamStats] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (res_d [B, ef] ascending, res_i [B, ef]; +inf / -1 padded).
 
@@ -293,7 +312,16 @@ def beam_search(state: GraphState, q: torch.Tensor,
     A query is done when its best unexpanded candidate is no nearer than
     its ef-th result, or after (2 ef) / expand + 24 iterations. The
     expansion history is a ring of min(128, next_pow2(max_iters * expand))
-    ids."""
+    ids. `seeds` [B] are the level-0 start rows where the caller ran
+    `descend` itself; `stats`, where given, is filled in (`BeamStats`).
+    The launches sit under the profiler range `hnsw.beam`."""
+    with tracing.kernel_range("hnsw.beam"):
+        return _beam_search(state, q, qn, metric, ef, expand, allow,
+                            exclude, dual, seeds, stats)
+
+
+def _beam_search(state, q, qn, metric, ef, expand, allow, exclude, dual,
+                 seeds, stats):
     B = q.shape[0]
     dev = q.device
     M0 = state.nbrs.shape[1]
@@ -308,7 +336,9 @@ def beam_search(state: GraphState, q: torch.Tensor,
         if allow is not None:
             res_ok = res_ok & allow
 
-    seeds = descend(state, q, qn, metric)[:, None]               # [B, 1]
+    if seeds is None:
+        seeds = descend(state, q, qn, metric)
+    seeds = seeds[:, None]                                       # [B, 1]
     if allow is not None:
         seeds = _filter_seeds(state, q, qn, metric, allow, seeds)
     seed_d = _gathered(state, seeds, q, qn, metric)
@@ -330,9 +360,14 @@ def beam_search(state: GraphState, q: torch.Tensor,
     hist = torch.full((B, R), -1, dtype=torch.int32, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     earlier = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), -1)
+    scored = None if stats is None \
+        else torch.zeros((B, C), dtype=torch.int32, device=dev)
+    checks = 0
     for it in range(max_iters):
-        if it and it % CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if it and it % CHECK_EVERY == 0:
+            checks += 1
+            if bool(done.all()):
+                break
         ud = torch.where(cand_x | (cand_i < 0), INF, cand_d)
         sel_d, sel_pos = _smallest(ud, E)                          # [B, E]
         sel_i = cand_i.gather(1, sel_pos)
@@ -352,6 +387,8 @@ def beam_search(state: GraphState, q: torch.Tensor,
             dup |= (nbx == res_i[:, None, :]).any(2)
         fresh = (nb >= 0) & ~dup & ~done[:, None]
         nb = torch.where(fresh, nb, -1)
+        if scored is not None:
+            scored += fresh
 
         nd = _gathered(state, nb, q, qn, metric)                 # inf for -1
         cand_d, cand_i, cand_x = _merge(cand_d, cand_i, cand_x, nd, nb, ef)
@@ -364,6 +401,11 @@ def beam_search(state: GraphState, q: torch.Tensor,
                                      torch.where(ok, nb, -1), ef)
         else:
             res_d, res_i = cand_d, cand_i
+    else:
+        it = max_iters
+    if stats is not None:
+        stats.iterations, stats.done_checks = it, checks
+        stats.scored = scored.sum()
     return res_d, torch.where(torch.isinf(res_d), -1, res_i)
 
 
@@ -492,6 +534,113 @@ def commit_chunk(state: GraphState, rows: torch.Tensor, sel_i: torch.Tensor,
     return state
 
 
+ADOPT_ROUNDS = 8
+
+
+def reached(state: GraphState, n: int) -> torch.Tensor:
+    """[n] bool: the rows a walk of level-0 links from the entry reaches
+    (deleted rows are walked through, as the beam walks them)."""
+    nb = state.nbrs[:n]
+    seen = torch.zeros(n, dtype=torch.bool, device=nb.device)
+    entry = int(state.entry)
+    if not 0 <= entry < n:
+        return seen
+    front = torch.tensor([entry], device=nb.device)
+    seen[front] = True
+    while front.numel():
+        nxt = nb[front].reshape(-1)
+        nxt = torch.unique(nxt[nxt >= 0].long())
+        front = nxt[~seen[nxt]]
+        seen[front] = True
+    return seen
+
+
+def adopt_unreachable(state: GraphState, linked: torch.Tensor,
+                      metric: str) -> int:
+    """The port's own repair, which the reference does not make: link
+    every linked live row that no walk of level-0 links from the entry
+    reaches (no beam finds it but as its start) from a row that is
+    reached. Reverse links are pruned by distance, so a row whose every
+    selected neighbour kept nearer entrants has no in-link, and rows
+    linked only among such rows are cut off with it; many lie in the
+    first chunk, which only intra-chunk candidates link, and a refine or
+    a vacuum that rewrites rows cuts off more. A lost row joins the row
+    of the nearest reached row among its out-neighbours and a beam's M0
+    nearest to it that has a free slot, or else takes the place of that
+    row's farthest entry with another in-link from a reached row; rows
+    reached through it are found again, and a row cut off all the same
+    is taken up in the next of at most ADOPT_ROUNDS rounds. `linked` [n]
+    bool marks the rows to consider, the first n of the arena. In place;
+    returns the rows adopted."""
+    n = linked.shape[0]
+    adopted = 0
+    for _ in range(ADOPT_ROUNDS):
+        seen = reached(state, n)
+        rows = torch.nonzero(linked & ~seen & ~state.deleted[:n])[:, 0]
+        if rows.numel() == 0 or not bool(seen.any()):
+            break
+        got = _adopt(state, rows, seen, metric)
+        adopted += got
+        if got == 0:
+            break
+    return adopted
+
+
+def _adopt(state: GraphState, rows: torch.Tensor, seen: torch.Tensor,
+           metric: str) -> int:
+    """One round of `adopt_unreachable` for the lost `rows`."""
+    n = seen.shape[0]
+
+    def dists(at: torch.Tensor, ids: torch.Tensor) -> np.ndarray:
+        return dist.gathered(state.vectors, ids, state.vectors[at], metric,
+                             corpus_norms=state.norms,
+                             query_norms=state.norms[at]).cpu().numpy()
+
+    # in-links from reached rows only: an entry that keeps another one
+    # stays reached when its place is taken
+    nb = state.nbrs[:n][seen]
+    indeg = torch.bincount(nb[nb >= 0].long(), minlength=n)
+    M0 = nb.shape[1]
+    _, found = beam_search(state, state.vectors[rows], state.norms[rows],
+                           metric=metric, ef=M0)
+    outs = torch.cat([state.nbrs[rows], found], 1)              # [k, 2 M0]
+    outs = torch.where(seen[outs.clamp_min(0).long()] & (outs >= 0), outs,
+                       -1)
+    if not bool((outs >= 0).any()):
+        return 0
+    out_d = dists(rows, outs)
+    hosts = torch.unique(outs[outs >= 0]).long()
+    host_rows = state.nbrs[hosts]                               # [h, M0]
+    row_of = {a: i for i, a in enumerate(hosts.tolist())}
+    ids, ds = host_rows.cpu().numpy(), dists(hosts, host_rows)
+    deg = dict(zip(ids[ids >= 0].tolist(),
+                   indeg[host_rows[host_rows >= 0].long()].tolist()))
+    changed: set[int] = set()
+    adopted = 0
+    for r, cand, cd in zip(rows.tolist(), outs.cpu().numpy(), out_d):
+        for d, j in sorted({(float(d), int(j))
+                            for j, d in zip(cand, cd) if j >= 0}):
+            i = row_of[j]
+            free = np.flatnonzero(ids[i] < 0)
+            if free.size:
+                slot = int(free[0])
+            else:
+                keeps = np.array([deg[int(e)] >= 2 for e in ids[i]])
+                if not keeps.any():
+                    continue
+                slot = int(np.flatnonzero(keeps)[np.argmax(ds[i][keeps])])
+                deg[int(ids[i, slot])] -= 1
+            ids[i, slot], ds[i, slot], deg[r] = r, d, 1
+            changed.add(i)
+            adopted += 1
+            break
+    if changed:
+        at = sorted(changed)
+        state.nbrs[hosts[at]] = torch.from_numpy(ids[at]).to(
+            state.nbrs.device)
+    return adopted
+
+
 # ---------------------------------------------------------------------------
 # insert pipelines
 # ---------------------------------------------------------------------------
@@ -519,14 +668,18 @@ def insert_chunk(state: GraphState, rows: torch.Tensor, enc: torch.Tensor,
     """Write vectors -> beam candidates -> intra-chunk candidates ->
     select-neighbors -> forward / reverse link commit. Works from the
     empty graph too (the beam finds nothing; intra-chunk candidates seed
-    the graph). In place."""
-    write_vectors(state, rows, enc, norms)
-    bd, bi = beam_search(state, enc, norms, metric=metric, ef=ef,
-                         dual=dual, expand=expand)
-    all_d, all_i = _with_intra(bd, bi, enc, norms, rows, metric, intra_k)
-    sel_i, sel_d = select_neighbors(state, all_d, all_i, m, metric)
-    return commit_chunk(state, rows, sel_i, sel_d, new_levels,
-                        metric=metric, m=m)
+    the graph). In place, under the profiler range `hnsw.link`; the
+    selection is the span `graph.select`."""
+    with tracing.kernel_range("hnsw.link"):
+        write_vectors(state, rows, enc, norms)
+        bd, bi = beam_search(state, enc, norms, metric=metric, ef=ef,
+                             dual=dual, expand=expand)
+        all_d, all_i = _with_intra(bd, bi, enc, norms, rows, metric,
+                                   intra_k)
+        with tracing.span("graph.select", n=rows.shape[0]):
+            sel_i, sel_d = select_neighbors(state, all_d, all_i, m, metric)
+        return commit_chunk(state, rows, sel_i, sel_d, new_levels,
+                            metric=metric, m=m)
 
 
 def link_chunk(state: GraphState, rows: torch.Tensor,
@@ -534,21 +687,25 @@ def link_chunk(state: GraphState, rows: torch.Tensor,
                intra_k: int, dual: bool = False,
                expand: int = 8) -> GraphState:
     """Graph-link rows whose vectors are already staged in the arena
-    (insert_chunk without the vector write). In place."""
-    real = rows >= 0
-    safe = rows.clamp_min(0).long()
-    enc = torch.where(real[:, None], state.vectors[safe], 0)
-    norms = state.norms[safe] * real
-    bd, bi = beam_search(state, enc, norms, metric=metric, ef=ef,
-                         dual=dual, expand=expand)
-    all_d, all_i = _with_intra(bd, bi, enc, norms, rows, metric, intra_k)
-    # a staged-but-unlinked row must not select itself
-    self_dup = all_i == rows[:, None]
-    all_d = torch.where(self_dup, INF, all_d)
-    all_i = torch.where(self_dup, -1, all_i)
-    sel_i, sel_d = select_neighbors(state, all_d, all_i, m, metric)
-    return commit_chunk(state, rows, sel_i, sel_d, new_levels,
-                        metric=metric, m=m)
+    (insert_chunk without the vector write). In place, as insert_chunk
+    traces it."""
+    with tracing.kernel_range("hnsw.link"):
+        real = rows >= 0
+        safe = rows.clamp_min(0).long()
+        enc = torch.where(real[:, None], state.vectors[safe], 0)
+        norms = state.norms[safe] * real
+        bd, bi = beam_search(state, enc, norms, metric=metric, ef=ef,
+                             dual=dual, expand=expand)
+        all_d, all_i = _with_intra(bd, bi, enc, norms, rows, metric,
+                                   intra_k)
+        # a staged-but-unlinked row must not select itself
+        self_dup = all_i == rows[:, None]
+        all_d = torch.where(self_dup, INF, all_d)
+        all_i = torch.where(self_dup, -1, all_i)
+        with tracing.span("graph.select", n=rows.shape[0]):
+            sel_i, sel_d = select_neighbors(state, all_d, all_i, m, metric)
+        return commit_chunk(state, rows, sel_i, sel_d, new_levels,
+                            metric=metric, m=m)
 
 
 # ---------------------------------------------------------------------------

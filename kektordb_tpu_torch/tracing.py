@@ -27,6 +27,24 @@ kernel wrapper's launches; without a session neither calls into torch.
     with tracing.span("engine.search", n=B):
         ...
     tracing.since(t_ns)        # the spans that started at or after t_ns
+
+The spans the program records:
+  http.request, http.body, http.decode, http.encode   server/http.py
+  batcher.wait, batcher.batch                         server/batcher.py
+  engine.search and under it engine.lock, engine.settle, engine.text,
+    engine.scan (the index's search: the scan, or under serve_mode
+    "beam" the graph's descent and beam), engine.fuse, engine.assemble
+                                                      engine/engine.py
+  index.descend, index.beam (the beam read, through its copy back)
+  graph.link (one chunk of rows linked), graph.select, graph.upper
+                                                      index/hnsw.py
+and the counters: engine.search_retries, http.queries_b64.native and
+.fallback, beam.searches, beam.iterations, beam.done_checks (the beam
+loop's host-device synchronisations), beam.scored (neighbour ids
+scored), graph.linked_rows, graph.adopted_rows (rows a link pass left
+unreachable and the build linked). Kernel wrappers' profiler ranges:
+scan.pass_a, scan.pass_b, distance.gathered, fuse.fused_topk, hnsw.beam,
+hnsw.link.
 """
 
 from __future__ import annotations
