@@ -28,10 +28,15 @@ and their counterparts:
   * `mode="drop"` scatters with a positive out-of-range sentinel (`_oob`):
     a negative index in torch wraps to the last row, so every scatter here
     masks the -1 rows out first (`_real`).
-  * `lax.while_loop`: a bounded Python loop that asks the device whether
-    every query is done only every CHECK_EVERY iterations. A finished
-    query's iteration only merges +inf / -1 entries, which leaves its pools
-    as they are, so the extra iterations change no result.
+  * `lax.while_loop`: a bounded loop that asks the device whether every
+    query is done only every CHECK_EVERY iterations. A finished query's
+    iteration only merges +inf / -1 entries, which leaves its pools as
+    they are, so the extra iterations change no result. On the card the
+    iterations between two checks run as one block, a CUDA graph captured
+    the second time a shape key is seen and replayed in one launch
+    (`_Blocks`, `_GraphCache`); a key's first call, a caller that finds
+    its key's block in use, a tail shorter than a block, and every CPU
+    call run the same iterations eagerly.
   * `lax.sort` / `lax.top_k` / `jnp.argsort` / `jnp.lexsort`: stable
     `torch.sort` (ties keep the lower index first, as `top_k` does).
   * `associative_scan(maximum)`: `torch.cummax`.
@@ -39,6 +44,8 @@ and their counterparts:
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -54,6 +61,10 @@ I32_MAX = 2 ** 31 - 1
 # often (each ask is a host-device synchronisation)
 CHECK_EVERY = 4
 MAX_HOPS = 64          # descent hops per level
+# captured beam blocks kept, least recently used out, and shape keys
+# remembered as seen once
+GRAPH_ENTRIES = 8
+GRAPH_SEEN = 64
 
 
 class BeamStats:
@@ -314,19 +325,301 @@ def beam_search(state: GraphState, q: torch.Tensor,
     expansion history is a ring of min(128, next_pow2(max_iters * expand))
     ids. `seeds` [B] are the level-0 start rows where the caller ran
     `descend` itself; `stats`, where given, is filled in (`BeamStats`).
-    The launches sit under the profiler range `hnsw.beam`."""
+
+    The loop asks the device whether every query is done once every
+    CHECK_EVERY iterations. On a CUDA device the iterations between two
+    asks are a block replayed from a CUDA graph in one launch: the block
+    is captured the second time its shape key is seen (the batch, ef,
+    expand, M0, the options given, the metric, the dtypes, and the
+    addresses and shapes of the arena, norms, adjacency and deleted
+    flags, so that a grown state is captured anew) and kept in a small
+    cache shared by every thread. The call runs eagerly where the key is
+    new, where another caller is replaying the key's block, for a tail
+    of fewer than CHECK_EVERY iterations, and on the CPU. Both ways run
+    the same operations in the same order and give the same bits. The
+    counters `beam.graph_replays`, `beam.graph_captures` and
+    `beam.eager_blocks` count the blocks. The launches sit under the
+    profiler range `hnsw.beam`."""
     with tracing.kernel_range("hnsw.beam"):
         return _beam_search(state, q, qn, metric, ef, expand, allow,
                             exclude, dual, seeds, stats)
 
 
+def _hist_start(it: int, E: int, R: int) -> int:
+    """The history ring's column for iteration `it`'s E expanded ids:
+    lax.dynamic_update_slice clamps the start so that the update fits."""
+    return max(0, min((it * E) % R, R - E))
+
+
+class _Loop:
+    """The level-0 loop of one `beam_search` call: the candidate pool
+    with its expanded flags, the result pool (the candidate pool itself
+    unless dual), the expansion history, the done flags and the per-query
+    scored counts, and what the iterations read. `inputs` is (q, qn,
+    res_ok, exclude, cand_d, cand_i, cand_x, res_d, res_i), None where a
+    search has no such tensor. A static loop (a `_Blocks` entry's) owns
+    copies of them, which `load` refills for each call."""
+
+    INPUTS = ("q", "qn", "res_ok", "exclude", "cand_d", "cand_i", "cand_x",
+              "res_d", "res_i")
+
+    def __init__(self, state: GraphState, metric: str, E: int, R: int,
+                 inputs: tuple, count_scored: bool, static: bool = False):
+        for name, t in zip(self.INPUTS, inputs):
+            setattr(self, name, t.clone() if static and t is not None
+                    else t)
+        self.state, self.metric, self.E = state, metric, E
+        self.dual = self.res_ok is not None
+        B, ef = self.cand_d.shape
+        C = E * state.nbrs.shape[1]
+        dev = self.q.device
+        if not self.dual:
+            self.res_d, self.res_i = self.cand_d, self.cand_i
+        self.pad_x = torch.zeros((B, ef), dtype=torch.bool, device=dev) \
+            if self.dual else None
+        self.hist = torch.full((B, R), -1, dtype=torch.int32, device=dev)
+        self.done = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.earlier = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                             device=dev), -1)
+        self.scored = torch.zeros((B, C), dtype=torch.int32, device=dev) \
+            if count_scored else None
+
+    def pools(self) -> tuple[str, ...]:
+        """The tensors an iteration replaces rather than writes in place."""
+        return self.INPUTS[4:] if self.dual else self.INPUTS[4:7]
+
+    def load(self, state: GraphState, inputs: tuple) -> None:
+        """A static loop's fresh start for another call."""
+        self.state = state
+        for name, t in zip(self.INPUTS, inputs):
+            if t is not None:
+                getattr(self, name).copy_(t)
+        self.hist.fill_(-1)
+        self.done.zero_()
+        if self.scored is not None:
+            self.scored.zero_()
+
+    def step(self, h) -> None:
+        """One iteration. `h` places its expanded ids in the history ring:
+        the start column as a host int (eager), or the [1, E] columns as a
+        device tensor (a block, which reads them from a table)."""
+        st, E = self.state, self.E
+        B, ef = self.cand_d.shape
+        M0 = st.nbrs.shape[1]
+        ud = torch.where(self.cand_x | (self.cand_i < 0), INF, self.cand_d)
+        sel_d, sel_pos = _smallest(ud, E)                          # [B, E]
+        sel_i = self.cand_i.gather(1, sel_pos)
+        self.done |= (sel_d[:, 0] >= self.res_d[:, -1]) | (sel_i[:, 0] < 0)
+        cand_x = self.cand_x.scatter(1, sel_pos, True)
+        if isinstance(h, int):
+            self.hist[:, h:h + E] = sel_i
+        else:
+            self.hist.scatter_(1, h.expand(B, E), sel_i)
+
+        nb = st.nbrs[sel_i.clamp_min(0).long()].reshape(B, E * M0)
+        nb = torch.where((sel_i >= 0).repeat_interleave(M0, dim=1), nb, -1)
+        nbx = nb[:, :, None]
+        dup = (nbx == self.cand_i[:, None, :]).any(2)
+        dup |= (nbx == self.hist[:, None, :]).any(2)
+        dup |= ((nbx == nb[:, None, :]) & self.earlier).any(2)
+        if self.dual:
+            dup |= (nbx == self.res_i[:, None, :]).any(2)
+        fresh = (nb >= 0) & ~dup & ~self.done[:, None]
+        nb = torch.where(fresh, nb, -1)
+        if self.scored is not None:
+            self.scored += fresh
+
+        nd = _gathered(st, nb, self.q, self.qn, self.metric)   # inf for -1
+        self.cand_d, self.cand_i, self.cand_x = _merge(
+            self.cand_d, self.cand_i, cand_x, nd, nb, ef)
+        if self.dual:
+            ok = fresh & self.res_ok[nb.clamp_min(0).long()]
+            if self.exclude is not None:
+                ok = ok & (nb != self.exclude[:, None])
+            self.res_d, self.res_i, _ = _merge(
+                self.res_d, self.res_i, self.pad_x,
+                torch.where(ok, nd, INF), torch.where(ok, nb, -1), ef)
+        else:
+            self.res_d, self.res_i = self.cand_d, self.cand_i
+
+
+def _drive(loop: _Loop, block, max_iters: int) -> tuple[int, int]:
+    """Run `block(it, n)` (n iterations from `it`) up to max_iters, asking
+    the device between blocks whether every query is done, as the
+    reference's while_loop stops. Returns (iterations, asks)."""
+    it = checks = 0
+    while it < max_iters:
+        if it:
+            checks += 1
+            if bool(loop.done.all()):
+                break
+        n = min(CHECK_EVERY, max_iters - it)
+        block(it, n)
+        it += n
+    return it, checks
+
+
+# one CUDA graph capture at a time in the process (torch.cuda.graph)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _Blocks:
+    """One shape key's static loop and its block of CHECK_EVERY
+    iterations. Each iteration reads its history columns from the table
+    `cols` at the device counter `it`, so one block serves every place in
+    the loop. On a CUDA device the block is captured as a CUDA graph on
+    first use and replayed after; elsewhere it runs on the same buffers
+    uncaptured. `busy` marks an entry a caller holds (`_GraphCache`);
+    `ready` is the event after the last holder's reads of its buffers."""
+
+    def __init__(self):
+        self.busy = False
+        self.loop: Optional[_Loop] = None
+        self.static: dict[str, torch.Tensor] = {}
+        self.it = self.cols = None
+        self.graph = None
+        self.ready = None
+        self.launches = 0           # gather-distance launches a block
+        self.replays = self.eager_blocks = 0     # this holder's blocks
+
+    def load(self, state: GraphState, metric: str, E: int, R: int,
+             max_iters: int, inputs: tuple, count_scored: bool) -> _Loop:
+        dev = inputs[0].device
+        if self.ready is not None:
+            torch.cuda.current_stream(dev).wait_event(self.ready)
+        if self.loop is None:
+            self.loop = _Loop(state, metric, E, R, inputs, count_scored,
+                              static=True)
+            self.static = {n: getattr(self.loop, n)
+                           for n in self.loop.pools()}
+            self.it = torch.zeros(1, dtype=torch.long, device=dev)
+            self.cols = torch.tensor(
+                [[_hist_start(i, E, R) + j for j in range(E)]
+                 for i in range(max_iters)], dtype=torch.long, device=dev)
+        else:
+            self.loop.load(state, inputs)
+        self.it.zero_()
+        return self.loop
+
+    def release(self) -> None:
+        """After the call's last read of the buffers: count its blocks,
+        let the state go, and mark where the next holder may write."""
+        if self.replays:
+            tracing.count("beam.graph_replays", self.replays)
+        if self.eager_blocks:
+            tracing.count("beam.eager_blocks", self.eager_blocks)
+        self.replays = self.eager_blocks = 0
+        if self.loop is not None:
+            self.loop.state = None
+            dev = self.loop.q.device
+            if dev.type == "cuda":
+                self.ready = torch.cuda.Event()
+                self.ready.record(torch.cuda.current_stream(dev))
+
+    def _block(self, n: int) -> None:
+        L = self.loop
+        for _ in range(n):
+            h = self.cols.index_select(0, self.it)
+            self.it += 1
+            L.step(h)
+        for name, t in self.static.items():
+            t.copy_(getattr(L, name))
+            setattr(L, name, t)
+        if not L.dual:
+            L.res_d, L.res_i = L.cand_d, L.cand_i
+
+    def run(self, it: int, n: int) -> None:
+        """n iterations from `it`: a replay where n is a whole block on a
+        CUDA device, else eagerly on the static buffers."""
+        if n < CHECK_EVERY or not self.loop.q.is_cuda:
+            self._block(n)
+            self.eager_blocks += 1
+            return
+        if self.graph is None:
+            # the capture's calls count the block's gather-distance
+            # launches, which its first replay makes
+            graph = torch.cuda.CUDAGraph()
+            dev = self.loop.q.device
+            side = torch.cuda.Stream(dev)
+            with _CAPTURE_LOCK, torch.cuda.device(dev):
+                before = dist.gathered.launches
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self._block(CHECK_EVERY)
+                self.launches = dist.gathered.launches - before
+            self.graph = graph
+            tracing.count("beam.graph_captures")
+        else:
+            dist.gathered.launches += self.launches
+        self.graph.replay()
+        self.replays += 1
+
+
+class _GraphCache:
+    """Beam blocks by shape key, shared by every thread. A key's first
+    call gets no entry (it runs eagerly), so a one-off shape costs no
+    capture; its second call makes the entry. At most `size` entries
+    stay, the least recently used going first, and `seen` keys are
+    remembered. An entry serves one caller at a time: one that finds it
+    busy gets none."""
+
+    def __init__(self, size: int = GRAPH_ENTRIES, seen: int = GRAPH_SEEN,
+                 make=_Blocks):
+        self.size, self.seen_size, self.make = size, seen, make
+        self._lock = threading.Lock()
+        self._seen: OrderedDict = OrderedDict()
+        self._entries: OrderedDict = OrderedDict()
+
+    def acquire(self, key):
+        """The key's entry, marked busy, or None."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                if key not in self._seen:
+                    self._seen[key] = None
+                    while len(self._seen) > self.seen_size:
+                        self._seen.popitem(last=False)
+                    return None
+                del self._seen[key]
+                entry = self._entries[key] = self.make()
+                while len(self._entries) > self.size:
+                    self._entries.popitem(last=False)
+            elif entry.busy:
+                return None
+            self._entries.move_to_end(key)
+            entry.busy = True
+            return entry
+
+    def release(self, entry) -> None:
+        with self._lock:
+            entry.busy = False
+
+
+_GRAPHS = _GraphCache()
+
+
+def _graph_key(state: GraphState, q, qn, metric, ef, E, allow, exclude,
+               dual, stats) -> tuple:
+    """What a captured block depends on: the shapes and dtypes of its
+    buffers, the options, and the addresses of the state it reads (a
+    replay reads the tensors at those addresses as they are then)."""
+    return (q.device, tuple(q.shape), q.dtype,
+            None if qn is None else qn.dtype, metric, ef, E, dual,
+            allow is not None,
+            None if exclude is None else exclude.dtype, stats is not None,
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in (state.vectors, state.norms, state.nbrs,
+                            state.deleted)))
+
+
 def _beam_search(state, q, qn, metric, ef, expand, allow, exclude, dual,
-                 seeds, stats):
+                 seeds, stats, _graph: Optional[bool] = None):
+    """`beam_search`'s body. `_graph`: None lets the cache decide (CUDA
+    tensors only), False runs every block eagerly, True runs the blocks
+    on a new entry of its own (captured on a CUDA device)."""
     B = q.shape[0]
     dev = q.device
-    M0 = state.nbrs.shape[1]
     E = max(1, min(expand, ef))
-    C = E * M0
     max_iters = (2 * ef) // E + 24
     R = min(_next_pow2(max_iters * E), 128)
 
@@ -355,58 +648,41 @@ def _beam_search(state, q, qn, metric, ef, expand, allow, exclude, dual,
                                  torch.where(seed_ok, seed_d, INF),
                                  torch.where(seed_ok, seeds, -1), ef)
     else:
-        res_d, res_i = cand_d, cand_i
+        res_d = res_i = None
+    inputs = (q, qn, res_ok, exclude if dual else None, cand_d, cand_i,
+              cand_x, res_d, res_i)
 
-    hist = torch.full((B, R), -1, dtype=torch.int32, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    earlier = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), -1)
-    scored = None if stats is None \
-        else torch.zeros((B, C), dtype=torch.int32, device=dev)
-    checks = 0
-    for it in range(max_iters):
-        if it and it % CHECK_EVERY == 0:
-            checks += 1
-            if bool(done.all()):
-                break
-        ud = torch.where(cand_x | (cand_i < 0), INF, cand_d)
-        sel_d, sel_pos = _smallest(ud, E)                          # [B, E]
-        sel_i = cand_i.gather(1, sel_pos)
-        done = done | (sel_d[:, 0] >= res_d[:, -1]) | (sel_i[:, 0] < 0)
-        cand_x = cand_x.scatter(1, sel_pos, True)
-        # lax.dynamic_update_slice clamps the start so the update fits
-        h0 = max(0, min((it * E) % R, R - E))
-        hist[:, h0:h0 + E] = sel_i
+    def finish(loop: _Loop, res_d: torch.Tensor):
+        if stats is not None:
+            stats.iterations, stats.done_checks = it, checks
+            stats.scored = loop.scored.sum()
+        return res_d, torch.where(torch.isinf(res_d), -1, loop.res_i)
 
-        nb = state.nbrs[sel_i.clamp_min(0).long()].reshape(B, C)
-        nb = torch.where((sel_i >= 0).repeat_interleave(M0, dim=1), nb, -1)
-        nbx = nb[:, :, None]
-        dup = (nbx == cand_i[:, None, :]).any(2)
-        dup |= (nbx == hist[:, None, :]).any(2)
-        dup |= ((nbx == nb[:, None, :]) & earlier).any(2)
-        if dual:
-            dup |= (nbx == res_i[:, None, :]).any(2)
-        fresh = (nb >= 0) & ~dup & ~done[:, None]
-        nb = torch.where(fresh, nb, -1)
-        if scored is not None:
-            scored += fresh
-
-        nd = _gathered(state, nb, q, qn, metric)                 # inf for -1
-        cand_d, cand_i, cand_x = _merge(cand_d, cand_i, cand_x, nd, nb, ef)
-        if dual:
-            ok = fresh & res_ok[nb.clamp_min(0).long()]
-            if exclude is not None:
-                ok = ok & (nb != exclude[:, None])
-            res_d, res_i, _ = _merge(res_d, res_i, pad_x,
-                                     torch.where(ok, nd, INF),
-                                     torch.where(ok, nb, -1), ef)
-        else:
-            res_d, res_i = cand_d, cand_i
+    if _graph is None and q.is_cuda:
+        entry = _GRAPHS.acquire(_graph_key(state, q, qn, metric, ef, E,
+                                           allow, exclude, dual, stats))
     else:
-        it = max_iters
-    if stats is not None:
-        stats.iterations, stats.done_checks = it, checks
-        stats.scored = scored.sum()
-    return res_d, torch.where(torch.isinf(res_d), -1, res_i)
+        entry = _Blocks() if _graph else None
+    if entry is None:
+        loop = _Loop(state, metric, E, R, inputs, stats is not None)
+
+        def block(start, n):
+            for i in range(start, start + n):
+                loop.step(_hist_start(i, E, R))
+
+        it, checks = _drive(loop, block, max_iters)
+        tracing.count("beam.eager_blocks", -(-it // CHECK_EVERY))
+        return finish(loop, loop.res_d)
+    try:
+        loop = entry.load(state, metric, E, R, max_iters, inputs,
+                          stats is not None)
+        it, checks = _drive(loop, entry.run, max_iters)
+        # the next caller's replays overwrite the static pools
+        out = finish(loop, loop.res_d.clone())
+    finally:
+        entry.release()
+        _GRAPHS.release(entry)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -133,8 +133,9 @@ def gathered(
         if metric == COSINE:
             d = 1.0 - dots / cn          # queries pre-normalized (|q| = 1)
         else:
-            qm = quantum if quantum is not None \
-                else torch.tensor(1.0, device=vectors.device)
+            # a plain 1.0 copies nothing to the device, which a CUDA
+            # graph's capture (the beam's blocks) would refuse
+            qm = quantum if quantum is not None else 1.0
             q2 = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
             d = q2 - 2.0 * qm * dots + (qm * cn) ** 2
     return torch.where(ids < 0, INF, d)

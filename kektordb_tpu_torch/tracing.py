@@ -41,7 +41,10 @@ The spans the program records:
 and the counters: engine.search_retries, http.queries_b64.native and
 .fallback, beam.searches, beam.iterations, beam.done_checks (the beam
 loop's host-device synchronisations), beam.scored (neighbour ids
-scored), graph.linked_rows, graph.adopted_rows (rows a link pass left
+scored), beam.graph_replays, beam.graph_captures and beam.eager_blocks
+(every beam's blocks of iterations between two done checks: replayed
+from a CUDA graph, captured, run eagerly; hnsw_kernels.py),
+graph.linked_rows, graph.adopted_rows (rows a link pass left
 unreachable and the build linked). Kernel wrappers' profiler ranges:
 scan.pass_a, scan.pass_b, distance.gathered, fuse.fused_topk, hnsw.beam,
 hnsw.link.
