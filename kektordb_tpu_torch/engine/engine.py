@@ -801,19 +801,8 @@ class Engine:
         if F == 0:
             vec_sim = np.zeros((B, 0), np.float64)
         else:
-            dm = np.where(valid, d, np.nan)
-            all_nan = ~valid.any(axis=1, keepdims=True)
-            with np.errstate(invalid="ignore"):
-                lo = np.nanmin(np.where(all_nan, 0.0, dm), axis=1,
-                               keepdims=True)
-                hi = np.nanmax(np.where(all_nan, 0.0, dm), axis=1,
-                               keepdims=True)
-            span = hi - lo
-            ok_span = span > 0
-            vec_sim = np.where(ok_span,
-                               (hi - d) / np.where(ok_span, span, 1.0),
-                               1.0).astype(np.float64)
-            vec_sim = np.where(valid, vec_sim, -np.inf)
+            vec_sim = np.where(valid, _minmax(d, valid).astype(np.float64),
+                               -np.inf)
 
         if text_rows.size:
             cap_t = max(self.TEXT_CAND_CAP, 4 * k)
@@ -884,69 +873,78 @@ class Engine:
     def _emit_topk(self, h, idx, top_sc: np.ndarray, top_rows: np.ndarray,
                    top_d: np.ndarray, B: int, k: int,
                    include_metadata: bool, columnar: bool = False):
-        """Final hits from fused top-k arrays (device or host path): hits
-        with a -inf score or a row without an id are skipped; top_d is inf
-        for a text-only hit, whose distance is then omitted (None in the
-        columnar form)."""
-        kk = top_sc.shape[1]
+        """The hits of every read: each query's first k candidates, in
+        column order, that have a finite score and a row with an id. A
+        hit's distance is omitted (None in the columnar form) where it is
+        not finite: a text-only hit's top_d is inf. Columnar answers round
+        scores to 6 digits and distances to 5; columnar="np" with every
+        one of the first k candidates a hit answers with the [B, k] arrays
+        as they are."""
         fin = np.isfinite(top_sc)
+        find = np.isfinite(top_d)
         row_to_ext = idx.ids.row_to_ext
         n_rows = len(row_to_ext)
         get_meta = h.meta.get
+        # common case: every one of the first k candidates is a hit -> one
+        # fancy-index on the object-dtype id mirror, no loop over hits
+        safe = np.clip(top_rows, 0, max(n_rows - 1, 0))
+        live = idx.ids.live_mask(max(n_rows, 1))
+        ok = fin & (top_rows >= 0) & (top_rows < n_rows) & live[safe]
+        rect = top_sc.shape[1] >= k and bool(ok[:, :k].all())
+        if rect and columnar == "np" and not include_metadata:
+            return {"ids": idx.ids.exts_array()[safe[:, :k]].tolist(),
+                    "scores": np.ascontiguousarray(top_sc[:, :k],
+                                                   np.float32),
+                    "distances": np.ascontiguousarray(top_d[:, :k],
+                                                      np.float32)}
         if columnar:
-            safe = np.clip(top_rows, 0, max(n_rows - 1, 0))
-            live = idx.ids.live_mask(max(n_rows, 1))
-            ok = fin & (top_rows >= 0) & (top_rows < n_rows) & live[safe]
-            if kk >= k and columnar == "np" and not include_metadata \
-                    and bool(ok[:, :k].all()):
-                ext_arr = idx.ids.exts_array()
-                return {"ids": ext_arr[safe[:, :k]].tolist(),
-                        "scores": np.ascontiguousarray(
-                            top_sc[:, :k], np.float32),
-                        "distances": np.ascontiguousarray(
-                            top_d[:, :k], np.float32)}
-            sc_l = top_sc.astype(np.float64).round(6).tolist()
-            d_l = top_d.astype(np.float64).round(5).tolist()
+            # round on the rectangular arrays before the ragged split
+            top_sc = top_sc.astype(np.float64).round(6)
+            top_d = top_d.astype(np.float64).round(5)
+        if rect and bool(find[:, :k].all()):
+            ids = idx.ids.exts_array()[safe[:, :k]].tolist()
+            scs, ds = top_sc[:, :k].tolist(), top_d[:, :k].tolist()
+            rws = top_rows[:, :k].tolist() if include_metadata else None
         else:
-            sc_l = top_sc.tolist()
-            d_l = top_d.tolist()
-        fin_l = fin.tolist()
-        find_l = np.isfinite(top_d).tolist()
-        rows_l = top_rows.tolist()
-        col_ids, col_s, col_d, col_m = [], [], [], []
-        for b in range(B):
-            rb, sb, db = rows_l[b], sc_l[b], d_l[b]
-            fb, fdb = fin_l[b], find_l[b]
-            ids_b, s_b, d_b, m_b = [], [], [], []
-            for j, r in enumerate(rb):
-                if not fb[j] or not 0 <= r < n_rows:
-                    continue
-                ext = row_to_ext[r]
-                if ext is None:
-                    continue
-                ids_b.append(ext)
-                s_b.append(sb[j])
-                d_b.append(db[j] if fdb[j] else None)
-                if include_metadata:
-                    m_b.append(get_meta(r) or {})
-            col_ids.append(ids_b)
-            col_s.append(s_b)
-            col_d.append(d_b)
-            col_m.append(m_b)
+            fin_l, find_l = fin.tolist(), find.tolist()
+            sc_l, d_l = top_sc.tolist(), top_d.tolist()
+            ids, scs, ds, rws = [], [], [], []
+            for b, rb in enumerate(top_rows.tolist()):
+                sb, db, fb, fdb = sc_l[b], d_l[b], fin_l[b], find_l[b]
+                ids_b, s_b, d_b, r_b = [], [], [], []
+                for j, r in enumerate(rb):
+                    if not fb[j] or not 0 <= r < n_rows:
+                        continue
+                    ext = row_to_ext[r]
+                    if ext is None:
+                        continue
+                    ids_b.append(ext)
+                    s_b.append(sb[j])
+                    d_b.append(db[j] if fdb[j] else None)
+                    r_b.append(r)
+                    if len(ids_b) == k:
+                        break
+                ids.append(ids_b)
+                scs.append(s_b)
+                ds.append(d_b)
+                rws.append(r_b)
+        metas = [[get_meta(r) or {} for r in rb] for rb in rws] \
+            if include_metadata else None
         if columnar:
-            out_c = {"ids": col_ids, "scores": col_s, "distances": col_d}
+            out_c = {"ids": ids, "scores": scs, "distances": ds}
             if include_metadata:
-                out_c["metadata"] = col_m
+                out_c["metadata"] = metas
             return out_c
         out = []
-        for ids_b, s_b, d_b, m_b in zip(col_ids, col_s, col_d, col_m):
+        for b, ids_b in enumerate(ids):
+            s_b, d_b = scs[b], ds[b]
             hits = []
             for j, e in enumerate(ids_b):
                 hit = {"id": e, "score": s_b[j]}
                 if d_b[j] is not None:
                     hit["distance"] = d_b[j]
                 if include_metadata:
-                    hit["metadata"] = m_b[j]
+                    hit["metadata"] = metas[b][j]
                 hits.append(hit)
             out.append(hits)
         return out
@@ -955,89 +953,10 @@ class Engine:
                        B: int, k: int, include_metadata: bool,
                        columnar: bool = False):
         """Pure-vector result assembly (minmax_normalize semantics,
-        search_utils.go:48-72, vectorized over the batch)."""
-        valid = rows_out >= 0
-        dm = np.where(valid, d, np.nan)
-        # all-invalid rows (a filter that matches nothing) are pinned to 0
-        all_nan = ~valid.any(axis=1, keepdims=True)
-        dm = np.where(all_nan, 0.0, dm)
-        with np.errstate(invalid="ignore"):
-            lo = np.nanmin(dm, axis=1, keepdims=True)
-            hi = np.nanmax(dm, axis=1, keepdims=True)
-        span = hi - lo
-        ok_span = span > 0
-        scores = np.where(ok_span, (hi - d) / np.where(ok_span, span, 1.0),
-                          1.0)
-        row_to_ext = idx.ids.row_to_ext
-        n_rows = len(row_to_ext)
-        get_meta = h.meta.get
-        if columnar:
-            # common case: every one of the first k candidates maps to a
-            # live id -> one fancy-index on the object-dtype id mirror
-            safe = np.clip(rows_out, 0, max(n_rows - 1, 0))
-            live = idx.ids.live_mask(max(n_rows, 1))
-            ok = (rows_out >= 0) & (rows_out < n_rows) & live[safe]
-            rect = rows_out.shape[1] >= k and bool(ok[:, :k].all())
-            if rect and columnar == "np" and not include_metadata:
-                ext_arr = idx.ids.exts_array()
-                return {"ids": ext_arr[safe[:, :k]].tolist(),
-                        "scores": np.ascontiguousarray(
-                            scores[:, :k], np.float32),
-                        "distances": np.ascontiguousarray(
-                            d[:, :k], np.float32)}
-            d_r = d.astype(np.float64).round(5)
-            s_r = scores.astype(np.float64).round(6)
-            if rect:
-                ext_arr = idx.ids.exts_array()
-                out_c = {"ids": ext_arr[safe[:, :k]].tolist(),
-                         "scores": s_r[:, :k].tolist(),
-                         "distances": d_r[:, :k].tolist()}
-                if include_metadata:
-                    out_c["metadata"] = [
-                        [get_meta(r) or {} for r in rb]
-                        for rb in rows_out[:, :k].tolist()]
-                return out_c
-            d_l, s_l, rows_l = d_r.tolist(), s_r.tolist(), rows_out.tolist()
-            col_ids, col_s, col_d, col_m = [], [], [], []
-            for b in range(B):
-                rb, db, sb = rows_l[b], d_l[b], s_l[b]
-                ids_b, s_b, d_b, m_b = [], [], [], []
-                for j, r in enumerate(rb):
-                    if 0 <= r < n_rows and \
-                            (e := row_to_ext[r]) is not None:
-                        ids_b.append(e)
-                        s_b.append(sb[j])
-                        d_b.append(db[j])
-                        if include_metadata:
-                            m_b.append(get_meta(r) or {})
-                        if len(ids_b) == k:
-                            break
-                if include_metadata:
-                    col_m.append(m_b)
-                col_ids.append(ids_b)
-                col_s.append(s_b)
-                col_d.append(d_b)
-            out_c = {"ids": col_ids, "scores": col_s, "distances": col_d}
-            if include_metadata:
-                out_c["metadata"] = col_m
-            return out_c
-        d_l, s_l, rows_l = d.tolist(), scores.tolist(), rows_out.tolist()
-        out = []
-        for b in range(B):
-            rb, db, sb = rows_l[b], d_l[b], s_l[b]
-            if include_metadata:
-                hits = [{"id": e, "score": s, "distance": dd,
-                         "metadata": get_meta(r) or {}}
-                        for r, s, dd in zip(rb, sb, db)
-                        if 0 <= r < n_rows
-                        and (e := row_to_ext[r]) is not None]
-            else:
-                hits = [{"id": e, "score": s, "distance": dd}
-                        for r, s, dd in zip(rb, sb, db)
-                        if 0 <= r < n_rows
-                        and (e := row_to_ext[r]) is not None]
-            out.append(hits[:k])
-        return out
+        search_utils.go:48-72, vectorized over the batch): min-max scores
+        over every candidate fetched, then each query's first k hits."""
+        return self._emit_topk(h, idx, _minmax(d, rows_out >= 0), rows_out,
+                               d, B, k, include_metadata, columnar)
 
     def search_graph(self, index: str, query, k: int = 10, *,
                      hydrate_depth: int = 1, **kw) -> list[list[dict]]:
@@ -1633,6 +1552,23 @@ class _LazyIndex:
 
     def delete(self, ext_id: str) -> bool:
         return False
+
+
+def _minmax(d: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Min-max scores of [B, F] distances over each query's valid
+    candidates: 1 nearest, 0 farthest, 1 for every candidate where they
+    are all equal. A query with no valid candidate is pinned to 0 before
+    the min and max. In d's dtype; invalid places hold whatever the
+    arithmetic gives."""
+    dm = np.where(valid, d, np.nan)
+    all_nan = ~valid.any(axis=1, keepdims=True)
+    dm = np.where(all_nan, 0.0, dm)
+    with np.errstate(invalid="ignore"):
+        lo = np.nanmin(dm, axis=1, keepdims=True)
+        hi = np.nanmax(dm, axis=1, keepdims=True)
+    span = hi - lo
+    ok_span = span > 0
+    return np.where(ok_span, (hi - d) / np.where(ok_span, span, 1.0), 1.0)
 
 
 def _empty_hits(B: int, include_metadata: bool, columnar):

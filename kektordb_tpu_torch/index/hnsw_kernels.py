@@ -31,12 +31,9 @@ and their counterparts:
   * `lax.while_loop`: a bounded loop that asks the device whether every
     query is done only every CHECK_EVERY iterations. A finished query's
     iteration only merges +inf / -1 entries, which leaves its pools as
-    they are, so the extra iterations change no result. On the card the
-    iterations between two checks run as one block, a CUDA graph captured
-    the second time a shape key is seen and replayed in one launch
-    (`_Blocks`, `_GraphCache`); a key's first call, a caller that finds
-    its key's block in use, a tail shorter than a block, and every CPU
-    call run the same iterations eagerly.
+    they are, so the extra iterations change no result. The iterations
+    between two asks run as one block of `_Loop`, which the card replays
+    from a CUDA graph where `beam_search` says.
   * `lax.sort` / `lax.top_k` / `jnp.argsort` / `jnp.lexsort`: stable
     `torch.sort` (ties keep the lower index first, as `top_k` does).
   * `associative_scan(maximum)`: `torch.cummax`.
@@ -223,6 +220,23 @@ def _smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return v[:, :k], pos[:, :k]
 
 
+def _seen(x: torch.Tensor, *pools: torch.Tensor,
+          earlier: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, C] bool: where x [B, C] is in one of the pools [B, *] or, with
+    `earlier` (the [C, C] mask of the pairs j < i), equals an earlier
+    entry of its own row. One compare a pool, or-ed in order."""
+    xx = x[:, :, None]
+    tests = [(p, None) for p in pools]
+    if earlier is not None:
+        tests.append((x, earlier))
+    dup = None
+    for p, mask in tests:
+        hit = xx == p[:, None, :]
+        hit = (hit if mask is None else hit & mask).any(2)
+        dup = hit if dup is None else dup.bitwise_or_(hit)
+    return dup
+
+
 def _gathered(state: GraphState, ids, q, qn, metric):
     return dist.gathered(state.vectors, ids, q, metric,
                          corpus_norms=state.norms, query_norms=qn)
@@ -300,8 +314,7 @@ def _filter_seeds(state: GraphState, q, qn, metric, allow, seeds):
     S = seeds.shape[1]
     earlier = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                     device=q.device), -1)
-    dup = ((seeds[:, :, None] == seeds[:, None, :]) & earlier).any(2)
-    return torch.where(dup, -1, seeds)
+    return torch.where(_seen(seeds, earlier=earlier), -1, seeds)
 
 
 def beam_search(state: GraphState, q: torch.Tensor,
@@ -327,69 +340,92 @@ def beam_search(state: GraphState, q: torch.Tensor,
     `descend` itself; `stats`, where given, is filled in (`BeamStats`).
 
     The loop asks the device whether every query is done once every
-    CHECK_EVERY iterations. On a CUDA device the iterations between two
-    asks are a block replayed from a CUDA graph in one launch: the block
-    is captured the second time its shape key is seen (the batch, ef,
-    expand, M0, the options given, the metric, the dtypes, and the
-    addresses and shapes of the arena, norms, adjacency and deleted
-    flags, so that a grown state is captured anew) and kept in a small
-    cache shared by every thread. The call runs eagerly where the key is
-    new, where another caller is replaying the key's block, for a tail
-    of fewer than CHECK_EVERY iterations, and on the CPU. Both ways run
-    the same operations in the same order and give the same bits. The
-    counters `beam.graph_replays`, `beam.graph_captures` and
-    `beam.eager_blocks` count the blocks. The launches sit under the
-    profiler range `hnsw.beam`."""
+    CHECK_EVERY iterations, and runs the iterations between two asks as
+    one block (`_Loop`). On a CUDA device a block of a shape key's second
+    and later calls is replayed from a CUDA graph in one launch: it is
+    captured the second time the key is seen (the batch, ef, expand, M0,
+    the options given, the metric, the dtypes, and the addresses and
+    shapes of the arena, norms, adjacency and deleted flags, so that a
+    grown state is captured anew), and kept in a small cache shared by
+    every thread. The same block runs uncaptured where the key is new,
+    where another caller holds the key's entry, for a tail of fewer than
+    CHECK_EVERY iterations, and on the CPU; both ways give the same bits.
+    The counters `beam.graph_replays`, `beam.graph_captures` and
+    `beam.eager_blocks` (uncaptured) count the blocks. The launches sit
+    under the profiler range `hnsw.beam`."""
     with tracing.kernel_range("hnsw.beam"):
         return _beam_search(state, q, qn, metric, ef, expand, allow,
                             exclude, dual, seeds, stats)
 
 
-def _hist_start(it: int, E: int, R: int) -> int:
-    """The history ring's column for iteration `it`'s E expanded ids:
-    lax.dynamic_update_slice clamps the start so that the update fits."""
-    return max(0, min((it * E) % R, R - E))
+def _hist_cols(n: int, E: int, R: int, device) -> torch.Tensor:
+    """[n, E]: the history ring's columns for the E expanded ids of each
+    of iterations 0..n-1. lax.dynamic_update_slice clamps the start so
+    that the update fits."""
+    start = (torch.arange(n, device=device)[:, None] * E % R).clamp(
+        max=R - E)
+    return start + torch.arange(E, device=device)
+
+
+# one CUDA graph capture at a time in the process (torch.cuda.graph)
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _Loop:
-    """The level-0 loop of one `beam_search` call: the candidate pool
-    with its expanded flags, the result pool (the candidate pool itself
-    unless dual), the expansion history, the done flags and the per-query
-    scored counts, and what the iterations read. `inputs` is (q, qn,
-    res_ok, exclude, cand_d, cand_i, cand_x, res_d, res_i), None where a
-    search has no such tensor. A static loop (a `_Blocks` entry's) owns
-    copies of them, which `load` refills for each call."""
+    """The level-0 loop of a `beam_search` call on buffers of its own:
+    the candidate pool with its expanded flags, the result pool (the
+    candidate pool itself unless dual), the expansion history, the done
+    flags, the per-query scored counts, and what the iterations read.
+    `load` copies a call's inputs (q, qn, res_ok, exclude, cand_d,
+    cand_i, cand_x, res_d, res_i; None where a search has no such tensor)
+    into them, made at the first load. Each iteration reads its history
+    columns from the table `cols` at the device counter `it`, so that one
+    block of iterations serves every place in the loop.
+
+    A `_GraphCache` entry is a loop that stays for its shape key's next
+    call. On a CUDA device its block of CHECK_EVERY iterations is
+    captured as a CUDA graph on first use and replayed after (`run`).
+    `busy` marks an entry a caller holds; `ready` is the event after the
+    last holder's reads of its buffers."""
 
     INPUTS = ("q", "qn", "res_ok", "exclude", "cand_d", "cand_i", "cand_x",
               "res_d", "res_i")
 
-    def __init__(self, state: GraphState, metric: str, E: int, R: int,
-                 inputs: tuple, count_scored: bool, static: bool = False):
-        for name, t in zip(self.INPUTS, inputs):
-            setattr(self, name, t.clone() if static and t is not None
-                    else t)
-        self.state, self.metric, self.E = state, metric, E
-        self.dual = self.res_ok is not None
-        B, ef = self.cand_d.shape
-        C = E * state.nbrs.shape[1]
-        dev = self.q.device
-        if not self.dual:
-            self.res_d, self.res_i = self.cand_d, self.cand_i
-        self.pad_x = torch.zeros((B, ef), dtype=torch.bool, device=dev) \
-            if self.dual else None
-        self.hist = torch.full((B, R), -1, dtype=torch.int32, device=dev)
-        self.done = torch.zeros(B, dtype=torch.bool, device=dev)
-        self.earlier = torch.tril(torch.ones((C, C), dtype=torch.bool,
-                                             device=dev), -1)
-        self.scored = torch.zeros((B, C), dtype=torch.int32, device=dev) \
-            if count_scored else None
+    def __init__(self):
+        self.busy = False
+        self.q = self.state = self.graph = self.ready = None
+        self.launches = 0           # gather-distance launches a block
+        self.graph_replays = self.graph_captures = self.eager_blocks = 0
 
-    def pools(self) -> tuple[str, ...]:
-        """The tensors an iteration replaces rather than writes in place."""
-        return self.INPUTS[4:] if self.dual else self.INPUTS[4:7]
-
-    def load(self, state: GraphState, inputs: tuple) -> None:
-        """A static loop's fresh start for another call."""
+    def load(self, state: GraphState, metric: str, E: int, R: int,
+             max_iters: int, inputs: tuple, count_scored: bool) -> None:
+        dev = inputs[0].device
+        if self.ready is not None:
+            torch.cuda.current_stream(dev).wait_event(self.ready)
+        if self.q is None:
+            for name, t in zip(self.INPUTS, inputs):
+                setattr(self, name,
+                        None if t is None else torch.empty_like(t))
+            self.metric, self.E = metric, E
+            self.dual = self.res_ok is not None
+            if not self.dual:
+                self.res_d, self.res_i = self.cand_d, self.cand_i
+            # the tensors an iteration replaces rather than writes in
+            # place, and the buffers a block leaves them in
+            self.buffers = {n: getattr(self, n) for n in
+                            self.INPUTS[4:(9 if self.dual else 7)]}
+            B, ef = self.cand_d.shape
+            C = E * state.nbrs.shape[1]
+            self.pad_x = torch.zeros((B, ef), dtype=torch.bool, device=dev) \
+                if self.dual else None
+            self.hist = torch.empty((B, R), dtype=torch.int32, device=dev)
+            self.done = torch.empty(B, dtype=torch.bool, device=dev)
+            self.earlier = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                                 device=dev), -1)
+            self.scored = torch.empty((B, C), dtype=torch.int32,
+                                      device=dev) if count_scored else None
+            self.it = torch.empty(1, dtype=torch.long, device=dev)
+            self.cols = _hist_cols(max_iters, E, R, dev)
         self.state = state
         for name, t in zip(self.INPUTS, inputs):
             if t is not None:
@@ -398,32 +434,27 @@ class _Loop:
         self.done.zero_()
         if self.scored is not None:
             self.scored.zero_()
+        self.it.zero_()
 
-    def step(self, h) -> None:
-        """One iteration. `h` places its expanded ids in the history ring:
-        the start column as a host int (eager), or the [1, E] columns as a
-        device tensor (a block, which reads them from a table)."""
+    def step(self) -> None:
+        """One iteration."""
         st, E = self.state, self.E
         B, ef = self.cand_d.shape
         M0 = st.nbrs.shape[1]
+        cols = self.cols.index_select(0, self.it)                  # [1, E]
+        self.it += 1
         ud = torch.where(self.cand_x | (self.cand_i < 0), INF, self.cand_d)
         sel_d, sel_pos = _smallest(ud, E)                          # [B, E]
         sel_i = self.cand_i.gather(1, sel_pos)
         self.done |= (sel_d[:, 0] >= self.res_d[:, -1]) | (sel_i[:, 0] < 0)
         cand_x = self.cand_x.scatter(1, sel_pos, True)
-        if isinstance(h, int):
-            self.hist[:, h:h + E] = sel_i
-        else:
-            self.hist.scatter_(1, h.expand(B, E), sel_i)
+        self.hist.scatter_(1, cols.expand(B, E), sel_i)
 
         nb = st.nbrs[sel_i.clamp_min(0).long()].reshape(B, E * M0)
         nb = torch.where((sel_i >= 0).repeat_interleave(M0, dim=1), nb, -1)
-        nbx = nb[:, :, None]
-        dup = (nbx == self.cand_i[:, None, :]).any(2)
-        dup |= (nbx == self.hist[:, None, :]).any(2)
-        dup |= ((nbx == nb[:, None, :]) & self.earlier).any(2)
+        dup = _seen(nb, self.cand_i, self.hist, earlier=self.earlier)
         if self.dual:
-            dup |= (nbx == self.res_i[:, None, :]).any(2)
+            dup |= _seen(nb, self.res_i)
         fresh = (nb >= 0) & ~dup & ~self.done[:, None]
         nb = torch.where(fresh, nb, -1)
         if self.scored is not None:
@@ -442,11 +473,60 @@ class _Loop:
         else:
             self.res_d, self.res_i = self.cand_d, self.cand_i
 
+    def block(self, n: int) -> None:
+        """n iterations, then the pools copied back into the buffers."""
+        for _ in range(n):
+            self.step()
+        for name, t in self.buffers.items():
+            t.copy_(getattr(self, name))
+            setattr(self, name, t)
+        if not self.dual:
+            self.res_d, self.res_i = self.cand_d, self.cand_i
 
-def _drive(loop: _Loop, block, max_iters: int) -> tuple[int, int]:
-    """Run `block(it, n)` (n iterations from `it`) up to max_iters, asking
-    the device between blocks whether every query is done, as the
-    reference's while_loop stops. Returns (iterations, asks)."""
+    def run(self, n: int, capture: bool) -> None:
+        """n iterations: replayed from the CUDA graph (captured at the
+        first) where `capture` (a cache entry's call) holds, n is a whole
+        block and the buffers are on a CUDA device, else uncaptured."""
+        if not (capture and n == CHECK_EVERY and self.q.is_cuda):
+            self.block(n)
+            self.eager_blocks += 1
+            return
+        if self.graph is None:
+            # the capture's calls count the block's gather-distance
+            # launches, which its first replay makes
+            graph = torch.cuda.CUDAGraph()
+            dev = self.q.device
+            side = torch.cuda.Stream(dev)
+            with _CAPTURE_LOCK, torch.cuda.device(dev):
+                before = dist.gathered.launches
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self.block(CHECK_EVERY)
+                self.launches = dist.gathered.launches - before
+            self.graph = graph
+            self.graph_captures += 1
+        else:
+            dist.gathered.launches += self.launches
+        self.graph.replay()
+        self.graph_replays += 1
+
+    def release(self) -> None:
+        """After the call's last read of the buffers: count its blocks,
+        let the state go, and mark where the next holder may write."""
+        for name in ("graph_replays", "graph_captures", "eager_blocks"):
+            if getattr(self, name):
+                tracing.count(f"beam.{name}", getattr(self, name))
+                setattr(self, name, 0)
+        self.state = None
+        if self.q is not None and self.q.is_cuda:
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(self.q.device))
+
+
+def _drive(loop: _Loop, max_iters: int, capture: bool) -> tuple[int, int]:
+    """Run the loop's blocks up to max_iters, asking the device between
+    blocks whether every query is done, as the reference's while_loop
+    stops. Returns (iterations, asks)."""
     it = checks = 0
     while it < max_iters:
         if it:
@@ -454,117 +534,21 @@ def _drive(loop: _Loop, block, max_iters: int) -> tuple[int, int]:
             if bool(loop.done.all()):
                 break
         n = min(CHECK_EVERY, max_iters - it)
-        block(it, n)
+        loop.run(n, capture)
         it += n
     return it, checks
 
 
-# one CUDA graph capture at a time in the process (torch.cuda.graph)
-_CAPTURE_LOCK = threading.Lock()
-
-
-class _Blocks:
-    """One shape key's static loop and its block of CHECK_EVERY
-    iterations. Each iteration reads its history columns from the table
-    `cols` at the device counter `it`, so one block serves every place in
-    the loop. On a CUDA device the block is captured as a CUDA graph on
-    first use and replayed after; elsewhere it runs on the same buffers
-    uncaptured. `busy` marks an entry a caller holds (`_GraphCache`);
-    `ready` is the event after the last holder's reads of its buffers."""
-
-    def __init__(self):
-        self.busy = False
-        self.loop: Optional[_Loop] = None
-        self.static: dict[str, torch.Tensor] = {}
-        self.it = self.cols = None
-        self.graph = None
-        self.ready = None
-        self.launches = 0           # gather-distance launches a block
-        self.replays = self.eager_blocks = 0     # this holder's blocks
-
-    def load(self, state: GraphState, metric: str, E: int, R: int,
-             max_iters: int, inputs: tuple, count_scored: bool) -> _Loop:
-        dev = inputs[0].device
-        if self.ready is not None:
-            torch.cuda.current_stream(dev).wait_event(self.ready)
-        if self.loop is None:
-            self.loop = _Loop(state, metric, E, R, inputs, count_scored,
-                              static=True)
-            self.static = {n: getattr(self.loop, n)
-                           for n in self.loop.pools()}
-            self.it = torch.zeros(1, dtype=torch.long, device=dev)
-            self.cols = torch.tensor(
-                [[_hist_start(i, E, R) + j for j in range(E)]
-                 for i in range(max_iters)], dtype=torch.long, device=dev)
-        else:
-            self.loop.load(state, inputs)
-        self.it.zero_()
-        return self.loop
-
-    def release(self) -> None:
-        """After the call's last read of the buffers: count its blocks,
-        let the state go, and mark where the next holder may write."""
-        if self.replays:
-            tracing.count("beam.graph_replays", self.replays)
-        if self.eager_blocks:
-            tracing.count("beam.eager_blocks", self.eager_blocks)
-        self.replays = self.eager_blocks = 0
-        if self.loop is not None:
-            self.loop.state = None
-            dev = self.loop.q.device
-            if dev.type == "cuda":
-                self.ready = torch.cuda.Event()
-                self.ready.record(torch.cuda.current_stream(dev))
-
-    def _block(self, n: int) -> None:
-        L = self.loop
-        for _ in range(n):
-            h = self.cols.index_select(0, self.it)
-            self.it += 1
-            L.step(h)
-        for name, t in self.static.items():
-            t.copy_(getattr(L, name))
-            setattr(L, name, t)
-        if not L.dual:
-            L.res_d, L.res_i = L.cand_d, L.cand_i
-
-    def run(self, it: int, n: int) -> None:
-        """n iterations from `it`: a replay where n is a whole block on a
-        CUDA device, else eagerly on the static buffers."""
-        if n < CHECK_EVERY or not self.loop.q.is_cuda:
-            self._block(n)
-            self.eager_blocks += 1
-            return
-        if self.graph is None:
-            # the capture's calls count the block's gather-distance
-            # launches, which its first replay makes
-            graph = torch.cuda.CUDAGraph()
-            dev = self.loop.q.device
-            side = torch.cuda.Stream(dev)
-            with _CAPTURE_LOCK, torch.cuda.device(dev):
-                before = dist.gathered.launches
-                with torch.cuda.graph(graph, stream=side,
-                                      capture_error_mode="thread_local"):
-                    self._block(CHECK_EVERY)
-                self.launches = dist.gathered.launches - before
-            self.graph = graph
-            tracing.count("beam.graph_captures")
-        else:
-            dist.gathered.launches += self.launches
-        self.graph.replay()
-        self.replays += 1
-
-
 class _GraphCache:
-    """Beam blocks by shape key, shared by every thread. A key's first
-    call gets no entry (it runs eagerly), so a one-off shape costs no
-    capture; its second call makes the entry. At most `size` entries
-    stay, the least recently used going first, and `seen` keys are
-    remembered. An entry serves one caller at a time: one that finds it
-    busy gets none."""
+    """Beam loops by shape key, shared by every thread. A key's first
+    call gets no entry (it runs a loop of its own, uncaptured), so a
+    one-off shape costs no capture; its second call makes the entry. At
+    most `size` entries stay, the least recently used going first, and
+    `seen` keys are remembered. An entry serves one caller at a time: one
+    that finds it busy gets none."""
 
     def __init__(self, size: int = GRAPH_ENTRIES, seen: int = GRAPH_SEEN,
-                 make=_Blocks):
+                 make=_Loop):
         self.size, self.seen_size, self.make = size, seen, make
         self._lock = threading.Lock()
         self._seen: OrderedDict = OrderedDict()
@@ -613,10 +597,9 @@ def _graph_key(state: GraphState, q, qn, metric, ef, E, allow, exclude,
 
 
 def _beam_search(state, q, qn, metric, ef, expand, allow, exclude, dual,
-                 seeds, stats, _graph: Optional[bool] = None):
-    """`beam_search`'s body. `_graph`: None lets the cache decide (CUDA
-    tensors only), False runs every block eagerly, True runs the blocks
-    on a new entry of its own (captured on a CUDA device)."""
+                 seeds, stats):
+    """`beam_search`'s body: the key's cache entry on a CUDA device, else
+    a loop of its own."""
     B = q.shape[0]
     dev = q.device
     E = max(1, min(expand, ef))
@@ -652,36 +635,25 @@ def _beam_search(state, q, qn, metric, ef, expand, allow, exclude, dual,
     inputs = (q, qn, res_ok, exclude if dual else None, cand_d, cand_i,
               cand_x, res_d, res_i)
 
-    def finish(loop: _Loop, res_d: torch.Tensor):
+    loop = _GRAPHS.acquire(_graph_key(state, q, qn, metric, ef, E, allow,
+                                      exclude, dual, stats)) \
+        if q.is_cuda else None
+    cached = loop is not None
+    if not cached:
+        loop = _Loop()
+    try:
+        loop.load(state, metric, E, R, max_iters, inputs, stats is not None)
+        it, checks = _drive(loop, max_iters, cached)
+        # the next holder's replays overwrite the buffers
+        res_d = loop.res_d.clone()
         if stats is not None:
             stats.iterations, stats.done_checks = it, checks
             stats.scored = loop.scored.sum()
-        return res_d, torch.where(torch.isinf(res_d), -1, loop.res_i)
-
-    if _graph is None and q.is_cuda:
-        entry = _GRAPHS.acquire(_graph_key(state, q, qn, metric, ef, E,
-                                           allow, exclude, dual, stats))
-    else:
-        entry = _Blocks() if _graph else None
-    if entry is None:
-        loop = _Loop(state, metric, E, R, inputs, stats is not None)
-
-        def block(start, n):
-            for i in range(start, start + n):
-                loop.step(_hist_start(i, E, R))
-
-        it, checks = _drive(loop, block, max_iters)
-        tracing.count("beam.eager_blocks", -(-it // CHECK_EVERY))
-        return finish(loop, loop.res_d)
-    try:
-        loop = entry.load(state, metric, E, R, max_iters, inputs,
-                          stats is not None)
-        it, checks = _drive(loop, entry.run, max_iters)
-        # the next caller's replays overwrite the static pools
-        out = finish(loop, loop.res_d.clone())
+        out = res_d, torch.where(torch.isinf(res_d), -1, loop.res_i)
     finally:
-        entry.release()
-        _GRAPHS.release(entry)
+        loop.release()
+        if cached:
+            _GRAPHS.release(loop)
     return out
 
 
@@ -788,7 +760,7 @@ def commit_chunk(state: GraphState, rows: torch.Tensor, sel_i: torch.Tensor,
     old = torch.where(seg_dst[:, None] >= 0, state.nbrs[dr], -1)
     od = dist.gathered(state.vectors, old, state.vectors[dr], metric,
                        corpus_norms=state.norms, query_norms=state.norms[dr])
-    dup = (b_src[:, :, None] == old[:, None, :]).any(2)
+    dup = _seen(b_src, old)
     all_i = torch.cat([old, torch.where(dup, -1, b_src)], 1)
     all_d = torch.cat([od, torch.where(dup, INF, b_d)], 1)
     top_d, posn = _smallest(all_d, M0)
@@ -941,30 +913,25 @@ def insert_chunk(state: GraphState, rows: torch.Tensor, enc: torch.Tensor,
                  norms: torch.Tensor, new_levels: torch.Tensor, *,
                  metric: str, ef: int, m: int, intra_k: int,
                  dual: bool = False, expand: int = 8) -> GraphState:
-    """Write vectors -> beam candidates -> intra-chunk candidates ->
-    select-neighbors -> forward / reverse link commit. Works from the
-    empty graph too (the beam finds nothing; intra-chunk candidates seed
-    the graph). In place, under the profiler range `hnsw.link`; the
-    selection is the span `graph.select`."""
-    with tracing.kernel_range("hnsw.link"):
-        write_vectors(state, rows, enc, norms)
-        bd, bi = beam_search(state, enc, norms, metric=metric, ef=ef,
-                             dual=dual, expand=expand)
-        all_d, all_i = _with_intra(bd, bi, enc, norms, rows, metric,
-                                   intra_k)
-        with tracing.span("graph.select", n=rows.shape[0]):
-            sel_i, sel_d = select_neighbors(state, all_d, all_i, m, metric)
-        return commit_chunk(state, rows, sel_i, sel_d, new_levels,
-                            metric=metric, m=m)
+    """Write the chunk's vectors into the arena, then link its rows
+    (`link_chunk`, which reads the vectors back as written; padding rows
+    come back zeroed, as the reference's callers pad them). Works from
+    the empty graph too. In place."""
+    write_vectors(state, rows, enc, norms)
+    return link_chunk(state, rows, new_levels, metric=metric, ef=ef, m=m,
+                      intra_k=intra_k, dual=dual, expand=expand)
 
 
 def link_chunk(state: GraphState, rows: torch.Tensor,
                new_levels: torch.Tensor, *, metric: str, ef: int, m: int,
                intra_k: int, dual: bool = False,
                expand: int = 8) -> GraphState:
-    """Graph-link rows whose vectors are already staged in the arena
-    (insert_chunk without the vector write). In place, as insert_chunk
-    traces it."""
+    """Graph-link rows whose vectors are already in the arena: beam
+    candidates -> intra-chunk candidates -> select-neighbors -> forward /
+    reverse link commit. Works from the empty graph too (the beam finds
+    nothing; intra-chunk candidates seed the graph). In place, under the
+    profiler range `hnsw.link`; the selection is the span
+    `graph.select`."""
     with tracing.kernel_range("hnsw.link"):
         real = rows >= 0
         safe = rows.clamp_min(0).long()
@@ -1071,7 +1038,7 @@ def refine_chunk(state: GraphState, rows: torch.Tensor, *, metric: str,
     cur = torch.where(state.deleted[cur.clamp_min(0).long()], -1, cur)
     cd = dist.gathered(state.vectors, cur, q, metric,
                        corpus_norms=state.norms, query_norms=qn)
-    dup = (cur[:, :, None] == bi[:, None, :]).any(2)
+    dup = _seen(cur, bi)
     all_d = torch.cat([bd, torch.where(dup, INF, cd)], 1)
     all_i = torch.cat([bi, torch.where(dup, -1, cur)], 1)
     all_d, order = torch.sort(all_d, dim=1, stable=True)

@@ -217,6 +217,33 @@ def test_select_commit_update_refine_same_rows(built):
         K.rows_referencing_deleted(ts).numpy())
 
 
+def test_insert_chunk_same_graph():
+    """`insert_chunk` on both sides from the empty graph: a first chunk
+    (the beam finds nothing, the intra-chunk candidates seed the graph),
+    then a second that the beam links into it. The adjacency, levels,
+    entry point and size come out equal."""
+    X = data(256, D, 6)
+    C, cap = 128, 512
+    kw = dict(m0=2 * M, lmax=4, mu=M, ucap=64)
+    st = JK.init_state(cap, D, jnp.float32, **kw)
+    ts = K.init_state(cap, D, torch.float32, device="cpu", **kw)
+    levels = np.zeros(C, np.int32)
+    levels[[5, 70]] = [1, 2]
+    for c in range(2):
+        rows = np.arange(c * C, (c + 1) * C, dtype=np.int32)
+        enc = X[rows]
+        norms = (enc ** 2).sum(-1)
+        args = dict(metric="euclidean", ef=EFC, m=M, intra_k=16)
+        st = JK.insert_chunk(st, *map(jnp.asarray, (rows, enc, norms,
+                                                    levels)), **args)
+        ts = K.insert_chunk(ts, *map(torch.from_numpy, (rows, enc, norms,
+                                                        levels)), **args)
+    assert (np.asarray(st.nbrs)[C:2 * C] >= 0).sum() > C * M
+    for f in ("nbrs", "levels", "entry", "max_level", "size"):
+        np.testing.assert_array_equal(np.asarray(getattr(st, f)),
+                                      getattr(ts, f).numpy())
+
+
 def test_port_build_invariants_and_recall(built):
     """The port builds from the same data and seed; its graph keeps the
     invariants and its beam recall is within 0.01 of the reference's."""

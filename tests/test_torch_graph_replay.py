@@ -1,12 +1,14 @@
-"""The graph beam's blocks (`hnsw_kernels._Blocks`): the level-0 loop
-run CHECK_EVERY iterations at a time on static buffers, the history ring
-written at columns read from a device table by a device counter, and on
-a CUDA device each block replayed from a captured CUDA graph.
+"""The graph beam's blocks (`hnsw_kernels._Loop`): the level-0 loop
+run CHECK_EVERY iterations at a time on buffers of its own, the history
+ring written at columns read from a device table by a device counter,
+and on a CUDA device a cache entry's blocks replayed from a captured CUDA
+graph.
 
 On the CPU (the blocks run uncaptured there):
-* the blocks give the eager loop's bits: distances, rows, iterations,
-  done checks and ids scored, single and dual, at expand 4 and at
-  expand 3, where the ring's clamped start engages;
+* a loop reloaded for a second call with other inputs, as a cache
+  entry's is, gives a fresh loop's bits: distances, rows, iterations,
+  done checks, ids scored and the loop's final state, single and dual,
+  at expand 4 and at expand 3, where the ring's clamped start engages;
 * the cache's rules as host logic: a key gets an entry the second time
   it is seen, a busy entry is handed to no one else (also under a storm
   of threads), at most `size` entries and `seen` keys are kept, least
@@ -15,12 +17,12 @@ On the CPU (the blocks run uncaptured there):
 * the counters: every CPU block is an eager one.
 
 On a card (`card` marker; skipped without one), on a 30,000-row graph at
-M 16, ef_construction 200: the replayed blocks against the eager loop bit
-for bit at the serving shape, dual with `allow` and `exclude`, at the
+M 16, ef_construction 200: the replayed blocks against the uncaptured
+loop (a key's first call on a cache of its own) bit for bit at the serving shape, dual with `allow` and `exclude`, at the
 build's shape, over an int8 arena, after an in-place write to the
 adjacency, after
 `grow_state`, and from two threads (a caller that finds the block busy
-runs eagerly); the gather-distance launches counted alike.
+runs uncaptured); the gather-distance launches counted alike.
 """
 
 import sys
@@ -51,15 +53,25 @@ def moved(before: dict) -> dict:
 
 
 def search(state, q, qn, *, ef, expand, allow=None, exclude=None,
-           dual=False, graph=None, stats=True):
+           dual=False, stats=True):
     """One `_beam_search` call: (d, rows, iterations, done checks, ids
-    scored); `graph` is its private `_graph` argument."""
+    scored)."""
     s = K.BeamStats() if stats else None
     d, rows = K._beam_search(state, q, qn, L2, ef, expand, allow, exclude,
-                             dual, None, s, _graph=graph)
+                             dual, None, s)
     if s is None:
         return d, rows
     return d, rows, s.iterations, s.done_checks, int(s.scored)
+
+
+def uncaptured(state, q, qn, **kw):
+    """The uncaptured loop's answer: a key's first call, on a cache of
+    its own."""
+    saved, K._GRAPHS = K._GRAPHS, K._GraphCache()
+    try:
+        return search(state, q, qn, **kw)
+    finally:
+        K._GRAPHS = saved
 
 
 def assert_same(a, b):
@@ -100,28 +112,37 @@ def test_blocks_give_the_eager_loops_bits(cpu_graph, expand, ef, dual,
         kw["exclude"] = torch.arange(q.shape[0], dtype=torch.int32)
     loops, drive = [], K._drive
 
-    def recording(loop, block, max_iters):
+    def recording(loop, max_iters, capture):
         loops.append(loop)
-        return drive(loop, block, max_iters)
+        return drive(loop, max_iters, capture)
 
     monkeypatch.setattr(K, "_drive", recording)
     before = counts()
-    eager = search(state, q, qn, graph=False, **kw)
-    blocks = search(state, q, qn, graph=True, **kw)
-    assert_same(blocks, eager)
+    q2 = q.flip(0) + 0.5
+    other = search(state, q2, (q2 * q2).sum(1), **kw)
+    fresh = search(state, q, qn, **kw)
+    # the first call's loop, reloaded with this call's inputs, as a cache
+    # entry's loop is for its key's next call
+    monkeypatch.setattr(K, "_Loop", lambda: loops[0])
+    reloaded = search(state, q, qn, **kw)
+    assert loops[2] is loops[0] and loops[1] is not loops[0]
+    assert not torch.equal(other[1], fresh[1])
+    assert_same(reloaded, fresh)
     # the whole loop state at the end, the history ring's order included
     for name in ("hist", "done", "scored", "cand_x", "cand_i", "res_i"):
-        assert torch.equal(getattr(loops[0], name), getattr(loops[1], name))
-    it, max_iters = eager[2], (2 * ef) // expand + 24
-    assert eager[3] == (it if it < max_iters else it - 1) // K.CHECK_EVERY
-    # every CPU block runs eagerly, in both calls, and none is captured
+        assert torch.equal(getattr(loops[1], name), getattr(loops[2], name))
+    it, max_iters = fresh[2], (2 * ef) // expand + 24
+    assert fresh[3] == (it if it < max_iters else it - 1) // K.CHECK_EVERY
+    # every CPU block runs uncaptured, in the three calls
+    blocks = -(-other[2] // K.CHECK_EVERY) + 2 * -(-it // K.CHECK_EVERY)
     assert moved(before) == {"graph_replays": 0, "graph_captures": 0,
-                             "eager_blocks": 2 * -(-it // K.CHECK_EVERY)}
+                             "eager_blocks": blocks}
     if expand == 3:
         # the ring is 128 wide: iteration 42's 3 ids would start at 126
         # and run past it, so the start is clamped to 125
         R = min(K._next_pow2(max_iters * expand), 128)
-        assert R == 128 and K._hist_start(42, 3, R) == 125
+        cols = K._hist_cols(max_iters, 3, R, "cpu")
+        assert R == 128 and cols[42].tolist() == [125, 126, 127]
         assert it > 42
 
 
@@ -268,13 +289,13 @@ def cache(monkeypatch):
 
 
 def three_calls(state, q, qn, **kw):
-    """The eager loop, then a key's first call (eager), its second (the
-    capture and replays) and its third (replays): the counters each moved
-    and the gather-distance launches each counted."""
+    """The uncaptured loop, then a key's first call (uncaptured), its
+    second (the capture and replays) and its third (replays): the
+    counters each moved and the gather-distance launches each counted."""
     out = []
-    for graph in (False, None, None, None):
+    for call in (uncaptured, search, search, search):
         before, launches = counts(), dist.gathered.launches
-        r = search(state, q, qn, graph=graph, **kw)
+        r = call(state, q, qn, **kw)
         torch.cuda.synchronize()
         out.append((r, moved(before), dist.gathered.launches - launches))
     return out
@@ -338,7 +359,7 @@ def test_a_replay_sees_an_in_place_write(card_graph, cache):
         before = counts()
         replayed = search(state, q, qn, **kw)
         assert moved(before)["graph_replays"] > 0
-        eager = search(state, q, qn, graph=False, **kw)
+        eager = uncaptured(state, q, qn, **kw)
         assert_same(replayed, eager)
     finally:
         state.nbrs.copy_(saved)
@@ -356,7 +377,7 @@ def test_a_grown_state_is_captured_anew(card_graph, cache):
                          idx.state.up_node.shape[0])
     # the grown adjacency differs from the old one
     grown.nbrs[:, grown.nbrs.shape[1] // 2:] = -1
-    eager = search(grown, q, qn, graph=False, **kw)
+    eager = uncaptured(grown, q, qn, **kw)
     before = counts()
     first = search(grown, q, qn, **kw)
     assert moved(before)["graph_replays"] == 0       # a new key
@@ -373,7 +394,7 @@ def test_a_busy_block_runs_eagerly_in_another_thread(card_graph, cache):
     state = idx.state
     kw = dict(ef=100, expand=4)
     sets = [queries(1024, 10 + i) for i in range(4)]
-    eager = [search(state, q, qn, graph=False, **kw) for q, qn in sets]
+    eager = [uncaptured(state, q, qn, **kw) for q, qn in sets]
     for _ in range(2):
         search(state, *sets[0], **kw)
     key, = cache._entries
